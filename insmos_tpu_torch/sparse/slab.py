@@ -1,0 +1,366 @@
+"""Slab engine, inference subset (port of insmos_tpu/sparse/slab.py).
+
+A ``Slab`` is a fixed-capacity T-dense sparse tensor: sites are the sorted
+set of 3D voxel keys, and the temporal axis is stored dense per site
+(``feats (V, T*C)`` t-major, ``occ (V, T)``). Features are zero at
+non-occupied (site, t) slots. Everything here keeps the reference's static
+capacities: no operation has a data-dependent output shape, so nothing
+synchronises with the host.
+
+The window engine (window_tables / window_conv) and the incremental-mode
+``maintain_window_slab`` are not ported yet; the span engine
+(span_conv.py) carries every conv of the inference path.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+
+from .tensor import KEY_SENTINEL
+
+INT32_MAX = 2**31 - 1
+
+
+@dataclass
+class Slab:
+    keys: torch.Tensor  # (V,) int32 sorted, sentinel padding
+    coords: torch.Tensor  # (V, 3) int32 (x, y, z); 0 on padding rows
+    occ: torch.Tensor  # (V, T) bool
+    feats: torch.Tensor  # (V, T*C), zero at non-occupied slots
+    valid: torch.Tensor  # (V,) bool
+    dims: tuple
+    T: int
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def num_features(self) -> int:
+        return self.feats.shape[-1] // self.T
+
+    def replace_feats(self, feats) -> "Slab":
+        return Slab(self.keys, self.coords, self.occ, feats, self.valid,
+                    self.dims, self.T)
+
+    def mask_feats(self, feats=None) -> torch.Tensor:
+        """Zero features at non-occupied slots: (V, T*C)."""
+        f = self.feats if feats is None else feats
+        C = f.shape[-1] // self.T
+        m = self.occ.repeat_interleave(C, dim=1)
+        return torch.where(m, f, torch.zeros((), dtype=f.dtype, device=f.device))
+
+
+def linearize3(coords, dims):
+    """(..., 3) int coords -> (...,) int32 key, x fastest; OOB -> sentinel."""
+    c = coords.to(torch.int64)
+    x, y, z = c[..., 0], c[..., 1], c[..., 2]
+    ok = ((x >= 0) & (x < dims[0]) & (y >= 0) & (y < dims[1])
+          & (z >= 0) & (z < dims[2]))
+    key = (z * dims[1] + y) * dims[0] + x
+    return torch.where(ok, key, KEY_SENTINEL).to(torch.int32)
+
+
+def delinearize3(keys, dims):
+    k = keys.to(torch.int64)
+    x = k % dims[0]
+    y = (k // dims[0]) % dims[1]
+    z = k // (dims[0] * dims[1])
+    return torch.stack([x, y, z], dim=-1).to(torch.int32)
+
+
+def _iota(n, device):
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def _first_of_run(sorted_vals):
+    """(N,) bool: row starts a run of equal values."""
+    f = torch.ones_like(sorted_vals, dtype=torch.bool)
+    f[1:] = sorted_vals[1:] != sorted_vals[:-1]
+    return f
+
+
+def _compact_by_sort(order_key, payload, capacity: int, fill):
+    """Payload rows in stable ascending order_key, cut/padded to capacity."""
+    perm = torch.sort(order_key, stable=True).indices
+    out = payload[perm][:capacity]
+    if out.shape[0] < capacity:
+        pad = torch.full((capacity - out.shape[0],) + tuple(out.shape[1:]),
+                         fill, dtype=out.dtype, device=out.device)
+        out = torch.cat([out, pad])
+    return out
+
+
+def _sites_of_sorted(skeys, capacity: int, dims):
+    """Unique sorted keys (sentinel tail) -> (site_keys, coords, valid,
+    first, rank, n_sites) at a fixed capacity."""
+    alive = skeys != KEY_SENTINEL
+    first = _first_of_run(skeys) & alive
+    rank = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_sites = torch.where(first, rank + 1, 0).max()
+    site_keys = _compact_by_sort(
+        torch.where(first & (rank < capacity), rank, INT32_MAX), skeys,
+        capacity, KEY_SENTINEL,
+    )
+    live = _iota(capacity, skeys.device) < torch.clamp(n_sites, max=capacity)
+    site_keys = torch.where(live, site_keys, KEY_SENTINEL)
+    valid = site_keys != KEY_SENTINEL
+    coords = torch.where(
+        valid[:, None], delinearize3(torch.where(valid, site_keys, 0), dims), 0
+    )
+    return site_keys, coords, valid, first, rank, n_sites
+
+
+def build_slab(coords3, tcol, point_valid, dims: Sequence[int], T: int,
+               capacity: int):
+    """Points -> Slab site set. Returns (slab with empty feats,
+    point_to_slot (N,) int32 flat site*T + t or -1, n_sites, n_dropped)."""
+    dev = coords3.device
+    n = coords3.shape[0]
+    key3 = linearize3(coords3, dims)
+    key3 = torch.where(point_valid, key3, KEY_SENTINEL)
+    # lexicographic (key, t) stable sort == lax.sort(num_keys=2)
+    comb = key3.to(torch.int64) * (T + 1) + tcol.to(torch.int64)
+    sperm = torch.sort(comb, stable=True).indices
+    sk = key3[sperm]
+    st = tcol.to(torch.int32)[sperm]
+
+    site_keys, coords, valid, first3, rank3, n_sites = _sites_of_sorted(
+        sk, capacity, dims
+    )
+    alive = sk != KEY_SENTINEL
+    in_cap = alive & (rank3 < capacity)
+    n_dropped = (alive & ~in_cap).sum()
+    rank3 = torch.where(in_cap, rank3, -1)
+
+    first4 = _first_of_run(sk) | torch.cat(
+        [torch.ones(1, dtype=torch.bool, device=dev), st[1:] != st[:-1]]
+    )
+    first4 &= in_cap
+    flat4 = torch.where(first4, rank3 * T + st, capacity * T).to(torch.int64)
+    occ = torch.zeros(capacity * T + 1, dtype=torch.bool, device=dev)
+    occ[flat4] = True
+    occ = occ[:-1].reshape(capacity, T)
+
+    p2slot = torch.empty(n, dtype=torch.int32, device=dev)
+    p2slot[sperm] = torch.where(in_cap, rank3 * T + st, -1)
+
+    slab = Slab(
+        keys=site_keys, coords=coords, occ=occ,
+        feats=torch.zeros((capacity, 0), dtype=torch.float32, device=dev),
+        valid=valid, dims=tuple(dims), T=T,
+    )
+    return slab, p2slot, n_sites, n_dropped
+
+
+def slab_from_sparse(x) -> Slab:
+    """SparseTensor (3D) -> Slab with T=1."""
+    return Slab(x.keys, x.coords, x.valid[:, None], x.feats, x.valid,
+                tuple(x.dims), 1)
+
+
+def sparse_from_slab(x: Slab):
+    """T=1 Slab -> SparseTensor."""
+    from .tensor import SparseTensor
+
+    assert x.T == 1
+    return SparseTensor(x.coords, x.keys, x.feats, x.valid, tuple(x.dims))
+
+
+def _strided_candidates(coords, valid, kernel3, stride3, pad3):
+    """Per input site, the <= prod(ceil(k/s)) output sites it feeds.
+    Returns (cands (V, Kc, 3) int32, ok (V, Kc) bool)."""
+    dev = coords.device
+    per_dim = [int(math.ceil(k / s)) for k, s in zip(kernel3, stride3)]
+    rng = [torch.arange(c, dtype=torch.int32, device=dev) for c in per_dim]
+    mesh = torch.meshgrid(*rng[::-1], indexing="ij")
+    cand = torch.stack([m.reshape(-1) for m in mesh[::-1]], dim=-1)  # (Kc, 3)
+    s = torch.tensor(stride3, dtype=torch.int32, device=dev)
+    p = torch.tensor(pad3, dtype=torch.int32, device=dev)
+    k = torch.tensor(kernel3, dtype=torch.int32, device=dev)
+    i = coords
+    o_hi = torch.div(i + p, s, rounding_mode="floor")
+    cands = o_hi[:, None, :] - cand[None]
+    lo_ok = cands * s - p <= i[:, None, :]
+    hi_ok = cands * s - p + (k - 1) >= i[:, None, :]
+    ok = (lo_ok & hi_ok & (cands >= 0)).all(-1) & valid[:, None]
+    return cands, ok
+
+
+def derive_strided_sites(x: Slab, kernel3, stride3, pad3, out_dims,
+                         capacity: int):
+    """Output site set of a strided conv: every output site receiving >= 1
+    kernel contribution, deduplicated, sorted. Returns (Slab with empty
+    feats and zero occ, n_sites, n_dropped_sites)."""
+    cands, ok = _strided_candidates(x.coords, x.valid, kernel3, stride3, pad3)
+    keys = linearize3(cands.reshape(-1, 3), out_dims)
+    keys = torch.where(ok.reshape(-1), keys, KEY_SENTINEL)
+    skeys = torch.sort(keys).values
+    site_keys, coords, valid, _, _, n_sites = _sites_of_sorted(
+        skeys, capacity, out_dims
+    )
+    n_dropped = torch.clamp(n_sites - capacity, min=0)
+    dev = x.keys.device
+    out = Slab(
+        keys=site_keys, coords=coords,
+        occ=torch.zeros((capacity, x.T), dtype=torch.bool, device=dev),
+        feats=torch.zeros((capacity, 0), dtype=torch.float32, device=dev),
+        valid=valid, dims=tuple(out_dims), T=x.T,
+    )
+    return out, n_sites, n_dropped
+
+
+def strided_occ(x: Slab, out: Slab, kernel3, stride3, pad3) -> Slab:
+    """out.occ = OR of the occupancy of the input sites each output site
+    gathers (t-kernel 1). Same result as the reference's window-table
+    version, computed by scattering every child's occupancy onto the output
+    rows it feeds (span inference folds this into the down conv instead —
+    SpanPlan.conv_with_occ)."""
+    from .coords import lookup_keys
+
+    cands, ok = _strided_candidates(x.coords, x.valid, kernel3, stride3, pad3)
+    Kc = cands.shape[1]
+    rows = lookup_keys(out.keys, linearize3(cands.reshape(-1, 3), out.dims))
+    rows = torch.where(ok.reshape(-1), rows, -1)
+    tgt = torch.where(rows >= 0, rows, out.capacity).to(torch.int64)
+    src = (x.occ & x.valid[:, None]).repeat_interleave(Kc, dim=0)
+    acc = torch.zeros((out.capacity + 1, x.T), dtype=torch.int32,
+                      device=x.keys.device)
+    acc.index_add_(0, tgt, src.to(torch.int32))
+    occ = (acc[:-1] > 0) & out.valid[:, None]
+    return Slab(out.keys, out.coords, occ, out.feats, out.valid, out.dims,
+                out.T)
+
+
+def dilate_mask(src_keys, src_sel, dims, reach: int, q_keys, q_valid):
+    """For each query site: within L-inf distance ``reach`` of a selected
+    source site? Dense bool grid + separable OR of shifted copies (the
+    Chebyshev ball is an axis product)."""
+    X, Y, Z = dims
+    n = X * Y * Z
+    sk = torch.where(src_sel, src_keys, n).to(torch.int64)
+    grid = torch.zeros(n + 1, dtype=torch.bool, device=src_keys.device)
+    grid[sk.clamp(max=n)] = True
+    g = grid[:n].reshape(Z, Y, X)
+    for ax in (2, 1, 0):
+        out = g.clone()
+        L = g.shape[ax]
+        for s in range(1, reach + 1):
+            if s >= L:
+                break
+            out.narrow(ax, s, L - s).logical_or_(g.narrow(ax, 0, L - s))
+            out.narrow(ax, 0, L - s).logical_or_(g.narrow(ax, s, L - s))
+        g = out
+    m = g.reshape(-1)[q_keys.to(torch.int64).clamp(0, n - 1)]
+    return m & q_valid
+
+
+def compact_rows(sel, capacity: int):
+    """Selected-row indices compacted to ``capacity`` (order-preserving).
+    Returns ((capacity,) int32 row or -1, overflow count)."""
+    pos = torch.cumsum(sel.to(torch.int32), 0, dtype=torch.int32) - 1
+    keep = sel & (pos < capacity)
+    tgt = torch.where(keep, pos, capacity).to(torch.int64)
+    idx = torch.full((capacity + 1,), -1, dtype=torch.int32, device=sel.device)
+    # kept rows land on unique slots; the rest all write -1 to the dump slot
+    idx[tgt] = torch.where(keep, _iota(sel.shape[0], sel.device), -1)
+    n = sel.sum()
+    return idx[:capacity], torch.clamp(n - capacity, min=0)
+
+
+def take_rows(a, idx, fill=0):
+    """Row gather with -1 -> fill."""
+    rows = a[idx.clamp(min=0).to(torch.int64)]
+    m = (idx >= 0).reshape((-1,) + (1,) * (a.ndim - 1))
+    return torch.where(m, rows, torch.tensor(fill, dtype=a.dtype,
+                                             device=a.device))
+
+
+def site_grid(x: Slab) -> torch.Tensor:
+    """Dense (X*Y*Z + 2,) int32 map: key -> site index or -1."""
+    n_cells = math.prod(x.dims)
+    grid = torch.full((n_cells + 3,), -1, dtype=torch.int32,
+                      device=x.keys.device)
+    safe = torch.where(x.valid, x.keys, n_cells + 2).to(torch.int64)
+    grid[safe] = _iota(x.capacity, x.keys.device)
+    return grid[: n_cells + 2]
+
+
+def _groups_yz(kernel3):
+    """Non-x kernel offset groups (ky, kz), y fastest (weight axis order)."""
+    return [(ky, kz) for kz in range(kernel3[2]) for ky in range(kernel3[1])]
+
+
+def slice_slots(x: Slab, t0: int, T_eff: int) -> Slab:
+    """Slots [t0, t0 + T_eff) of a slab (t-pruned inference)."""
+    C = x.num_features
+    return Slab(
+        x.keys, x.coords, x.occ[:, t0:t0 + T_eff],
+        x.feats[:, t0 * C:(t0 + T_eff) * C] if x.feats.shape[-1] else x.feats,
+        x.valid, x.dims, T_eff,
+    )
+
+
+def t_band(kt: int, T_in: int, T_out: int, doff: int, dtype=torch.float32,
+           device=None):
+    """(kt, T_in, T_out) band selectors: output slot p reads input slot
+    i = p + doff + it - lo; entries outside [0, T_in) vanish."""
+    lo = (kt - 1) // 2
+    i = torch.arange(T_in, device=device)[:, None]
+    p = torch.arange(T_out, device=device)[None, :]
+    return torch.stack(
+        [(i == p + doff + it - lo).to(dtype) for it in range(kt)]
+    )
+
+
+def inverse_s2k2_conv(coarse: Slab, weight, fine: Slab, parent_idx) -> Slab:
+    """Inverse of the stride-2 kernel-2 down conv: each fine site has one
+    coarse parent and one kernel position (f & 1 per dim)."""
+    K, cin, cout = weight.shape
+    T = coarse.T
+    f = coarse.mask_feats().to(weight.dtype)
+    idx = torch.where(parent_idx >= 0, parent_idx, coarse.capacity)
+    f_pad = torch.cat([f, f.new_zeros((1, T * cin))])
+    pf = f_pad[idx.to(torch.int64)]  # (Vf, T*cin)
+    kidx = ((fine.coords[:, 0] & 1) + 2 * (fine.coords[:, 1] & 1)
+            + 4 * (fine.coords[:, 2] & 1))
+    eyeT = torch.eye(T, dtype=torch.float32, device=weight.device)
+    w_all = torch.einsum("kcd,tp->ktcpd", weight[:8].float(), eyeT).reshape(
+        8, T * cin, T * cout
+    )
+    TOUT = T * cout
+    out = torch.zeros((fine.capacity, TOUT), dtype=torch.float32,
+                      device=weight.device)
+    pf32 = pf.float()
+    for k in range(8):
+        sel = kidx == k
+        out = torch.where(sel[:, None], pf32 @ w_all[k], out)
+    res = fine.replace_feats(out)
+    return res.replace_feats(res.mask_feats())
+
+
+def parent_index(grid_coarse, coarse_dims, fine: Slab) -> torch.Tensor:
+    """(Vf,) index of each fine site's stride-2 parent in the coarse slab."""
+    key = linearize3(torch.div(fine.coords, 2, rounding_mode="floor"),
+                     coarse_dims)
+    n_cells = math.prod(coarse_dims)
+    probe = torch.where(fine.valid & (key != KEY_SENTINEL), key, n_cells + 1)
+    return grid_coarse[probe.to(torch.int64)]
+
+
+def gather_slots(slab: Slab, point_to_slot, C: int):
+    """Per-point features from a slab: slot = site*T + t; -1 -> zeros."""
+    T = slab.T
+    f_pad = torch.cat([slab.feats, slab.feats.new_zeros((1, T * C))])
+    site = torch.where(point_to_slot >= 0,
+                       torch.div(point_to_slot, T, rounding_mode="floor"),
+                       slab.capacity)
+    t = torch.where(point_to_slot >= 0, point_to_slot % T, 0)
+    rows = f_pad[site.to(torch.int64)]
+    cols = t[:, None].to(torch.int64) * C + torch.arange(
+        C, device=rows.device)[None]
+    return torch.gather(rows, 1, cols)
