@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py [--details PATH]
 
-Builds the CUDA kernel from insmos_tpu_torch/csrc, holds it against its
-plain PyTorch version on every span conv of one full-config
-streaming step, streams 12 scans of the HDL-64E raycast fixture through
-InferencePipeline.push_scan at the full default Config (ref-exact mode:
-full stem every step, window re-rotated per step), checks the outputs and
-the overflow gates, and prints a first step time. Any failure raises and
-ends the run with a non-zero exit code; the last line of a successful run
-is the device JSON. ``--details PATH`` also writes the per-class kernel
-times, step times and gates to PATH as JSON.
+Builds the CUDA kernels from insmos_tpu_torch/csrc, holds the span-conv
+kernel against its plain PyTorch version on every span conv of one
+full-config streaming step, streams 12 scans of the HDL-64E raycast fixture
+through InferencePipeline.push_scan at the full default Config (ref-exact
+mode: full stem every step, window re-rotated per step), checks the outputs
+and the overflow gates, and prints a first step time. Then it runs the
+span-conv design probes (insmos_tpu_torch.tools.probe_extract, with and
+without --production, and probe_dotshapes) at their full case lists, each
+kernel held against its plain version. Any failure raises and ends the run
+with a non-zero exit code; the line before the last lists every kernel,
+the last line is the device JSON. ``--details PATH`` also writes the
+per-class kernel times, step times, gates and probe readings to PATH as
+JSON.
 
 Needs one CUDA device; imports no jax.
 """
@@ -37,6 +41,9 @@ from insmos_tpu.data.hdl64 import _make_world, raycast_scan
 from insmos_tpu_torch import kernels, setup_device
 from insmos_tpu_torch.pipeline import InferencePipeline
 from insmos_tpu_torch.sparse import span_conv as SC
+from insmos_tpu_torch.tools import card_line, cuda_ms
+from insmos_tpu_torch.tools import probe_dotshapes as PD
+from insmos_tpu_torch.tools import probe_extract as PE
 from insmos_tpu_torch.utils.params import init_params, make_model
 
 N_SCANS = 12
@@ -80,14 +87,6 @@ def make_stream(cfg, n_steps: int, seed: int = 0):
         scans.append(scan_f[rng.permutation(len(scan_f))[:n]])
         tfs.append(tf)
     return scans, tfs
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def phase_setup():
@@ -147,19 +146,6 @@ def shape_class(args) -> str:
         if parts[0].t0_off or T_out < parts[0].T:
             name += " t-pruned"
     return f"{name} span{plan.span}"
-
-
-def cuda_ms(fn, reps: int = 3) -> float:
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def phase_kernels(cfg, model, scans, tfs):
@@ -336,6 +322,68 @@ def phase_main(cfg, model, scans, tfs):
     return step_ms, gates, launches, full
 
 
+def phase_probes():
+    """The span-conv design probes through their entry points, each driven
+    with its launch counts set to 0 just before it and read just after.
+    Every probe holds each kernel output it times against the plain version
+    on the same inputs and raises beyond its tolerance (probe_extract 5e-4,
+    span_conv_apply 5e-4, probe_dotshapes 1e-4, x max(1, max|plain|)).
+    Returns the ``kernels`` report entries: ms and plain ms are summed over
+    the probe's cases (probe_dotshapes: at one copy per shape)."""
+    PE.KERNEL.reset_counts()
+    ext = PE.main()
+    ext_launches = dict(PE.KERNEL.launches)
+    SC.SPAN_KERNELS.reset_counts()
+    prod = PE.main2()
+    # every launch counts as a main-window launch; E's also run slots
+    prod_launches = {"D": (SC.SPAN_KERNELS.main_launches
+                           - SC.SPAN_KERNELS.slot_launches),
+                     "E": SC.SPAN_KERNELS.slot_launches}
+    PD.KERNEL.reset_counts()
+    dots = PD.main()
+    dot_launches = dict(PD.KERNEL.launches)
+    counts = {**ext_launches, **prod_launches, **dot_launches}
+    if not all(counts.values()):
+        raise AssertionError(f"probe kernel launch counters {counts}")
+
+    entries = []
+    for v in PE.VARIANTS:
+        entries.append(dict(
+            name=f"probe_extract {PE.LABELS[v]}", route="cuda",
+            source="insmos_tpu_torch/csrc/probe_extract.cu",
+            replaces="tools/probe_extract.py:255",
+            launches=ext_launches[v],
+            max_abs_err=max(r["variants"][v]["err"] for r in ext),
+            ms=sum(r["variants"][v]["ms"] for r in ext),
+            plain_ms=sum(r["plain_ms"] for r in ext)))
+    # D runs the main windows alone (span_conv.py::_kernel), E adds the
+    # coverage slots (::_gw_kernel)
+    for key, what, rep in (("D", "no slots", "1352"),
+                           ("E", "with slots", "1394")):
+        entries.append(dict(
+            name=f"span_conv, probe_extract --production {key} ({what})",
+            route="cuda", source="insmos_tpu_torch/csrc/span_conv.cu",
+            replaces=f"insmos_tpu/sparse/span_conv.py:{rep}",
+            launches=prod_launches[key],
+            max_abs_err=max(r[key]["err"] for r in prod),
+            ms=sum(r[key]["ms"] for r in prod),
+            plain_ms=sum(r[key]["plain_ms"] for r in prod)))
+    for v in PD.VARIANTS:
+        entries.append(dict(
+            name=f"probe_dot {v}", route="cuda",
+            source="insmos_tpu_torch/csrc/probe_dot.cu",
+            replaces="tools/probe_dotshapes.py:41",
+            launches=dot_launches[v],
+            max_abs_err=max(c["err"] for r in dots
+                            for c in r["kernel"][v].values()),
+            ms=sum(r["kernel"][v][1]["ms"] for r in dots),
+            plain_ms=sum(r["plain_ms"] for r in dots)))
+    print(f"probes: probe_extract A/B/C at {len(ext)} cases, D/E at "
+          f"{len(prod)} production cases, probe_dot mma/fma at {len(dots)} "
+          f"shapes agree with their plain versions; launches {counts}")
+    return entries, dict(extract=ext, production=prod, dotshapes=dots)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--details", help="write run details to this JSON file")
@@ -361,20 +409,21 @@ def main() -> int:
     print(f"step time (first reading, not a benchmark): median {med:.1f} ms "
           f"over the {len(full)} full-window steps = {1e3 / med:.2f} scans/s "
           f"on {card}; all steps ms {[round(t, 1) for t in step_ms]}")
+    probe_entries, probes = phase_probes()
     report = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "insmos_tpu_torch/csrc/span_conv.cu", "replaces": rep,
          "launches": launches[key], "max_abs_err": err[key],
          "ms": times[key], "plain_ms": times[key + "_plain"]}
         for (name, rep), key in zip(KERNELS, ("main", "slots"))
-    ]}
+    ] + probe_entries}
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)
         with open(args.details, "w") as fh:
             json.dump(dict(card=card, report=report, classes=classes,
-                           step_ms=step_ms, gates=gates, ref_err=ref_err), fh,
-                      indent=1)
+                           step_ms=step_ms, gates=gates, ref_err=ref_err,
+                           probes=probes), fh, indent=1)
     for name, c in sorted(classes.items()):
         print(f"  class {name}: {json.dumps(c)}")
     print(json.dumps(report))

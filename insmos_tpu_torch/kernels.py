@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc for sm_90a into one shared library with
-a plain C interface, loaded with ctypes. The build runs at first use, into
+Each source is compiled by its own nvcc process for sm_90a, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. The build runs at first use, into
 ``insmos_tpu_torch/_build/<source hash>/``, so a changed source rebuilds
 and an unchanged one is loaded as built. Nothing here runs at import time.
 """
@@ -19,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _LOADED: dict = {}
 
@@ -44,6 +45,21 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel, wait for every one, and raise if any
+    failed. Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    bad = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)
+           if p.returncode != 0]
+    if bad:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)} -> {rc}\n{o}" for c, rc, o in bad))
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> tuple[Path, float, str]:
     """Compile the kernels if this source hash has no library yet.
     Returns (library path, build seconds (0.0 when cached), nvcc output)."""
@@ -52,20 +68,22 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libinsmos_kernels.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *[str(p) for p in sources() if p.suffix == ".cu"]]
+    tag = os.getpid()
+    nvcc = [nvcc_path(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+    srcs = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in srcs]
+    tmp = out_dir / f"libinsmos_kernels.{tag}.so"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
+    try:
+        log = _run_all([nvcc + ["-c", "-o", str(o), str(p)]
+                        for p, o in zip(srcs, objs)])
+        log += _run_all([nvcc + ["-shared", "-o", str(tmp),
+                                 *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    return lib, dt, res.stdout + res.stderr
+    return lib, time.perf_counter() - t0, log
 
 
 def load_library() -> ctypes.CDLL:
@@ -74,3 +92,33 @@ def load_library() -> ctypes.CDLL:
         path, _, _ = build()
         _LOADED["lib"] = ctypes.CDLL(str(path))
     return _LOADED["lib"]
+
+
+class KernelEntry:
+    """One ``extern "C" int`` entry point of the library, bound with ctypes
+    at first call, with a launch count per variant.
+
+    Calling it launches the kernel and adds one to ``launches[variant]``;
+    a non-zero CUDA error from the launch raises instead."""
+
+    def __init__(self, symbol: str, argtypes: list, variants):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = dict.fromkeys(variants, 0)
+        self._fn = None
+
+    def reset_counts(self):
+        for k in self.launches:
+            self.launches[k] = 0
+
+    def __call__(self, variant: str, *args):
+        if self._fn is None:
+            fn = getattr(load_library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err:
+            raise RuntimeError(
+                f"{self.symbol} ({variant}) launch failed: CUDA error {err}")
+        self.launches[variant] += 1

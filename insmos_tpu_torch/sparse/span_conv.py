@@ -108,11 +108,9 @@ class SpanPlan:
 
     def conv(self, x: Slab, weight, out: Slab, kernel, t0_off: int = 0) -> Slab:
         kt = kernel[3] if len(kernel) == 4 else 1
-        cin, cout = weight.shape[1], weight.shape[2]
-        part = ConvPart(cin, cout, x.T, kt, 0, 0, t0_off)
-        feats = span_conv_parts(
-            x.keys, x.mask_feats(), [weight], (part,), out.coords, out.valid,
-            self, out.T,
+        feats = span_conv_apply(
+            x.keys, x.mask_feats(), out.coords, out.valid, weight, self, x.T,
+            kt, out.T, t0_off,
         )
         res = out.replace_feats(feats)
         return res.replace_feats(res.mask_feats())
@@ -433,6 +431,19 @@ def _prepare(feats_cat, weights, parts, plan, T_out):
         torch.float32
     wg = fold_weights_parts(weights, parts, kx, G, T_out, dtype, TC, TO)
     return feats_cat.to(dtype).contiguous(), wg.contiguous()
+
+
+def span_conv_apply(x_keys, x_feats, out_coords, out_valid, weight,
+                    plan: SpanPlan, T: int, kt: int = 1,
+                    T_out: int | None = None, t0_off: int = 0):
+    """Single-part wrapper over span_conv_parts: x_feats (Vin, T*cin),
+    weight (K, cin, cout). Returns (V, T_out*cout) float32."""
+    if T_out is None:
+        T_out = T
+    cin, cout = weight.shape[1], weight.shape[2]
+    part = ConvPart(cin, cout, T, kt, 0, 0, t0_off)
+    return span_conv_parts(x_keys, x_feats, [weight], (part,), out_coords,
+                           out_valid, plan, T_out)
 
 
 def span_conv_parts(x_keys, feats_cat, weights, parts, out_coords, out_valid,

@@ -1,0 +1,46 @@
+"""Probes of the port's kernels on the card (counterparts of the JAX
+package's ``tools/`` probes that reach a Pallas kernel), and the timing
+helpers they and ``chip_smoke.py`` share.
+
+    python -m insmos_tpu_torch.tools.probe_extract [--production]
+    python -m insmos_tpu_torch.tools.probe_dotshapes
+
+Every time they print is a reading of the card named on their first line.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 3) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls after one warm-up
+    call, timed with CUDA events on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def max_err(got, ref) -> tuple[float, float]:
+    """(max |got - ref|, max(1, max |ref|)): the error and the scale the
+    probes' tolerances are relative to."""
+    return (float((got - ref).abs().max()),
+            max(1.0, float(ref.abs().max())))
