@@ -11,11 +11,13 @@ mode: full stem every step, window re-rotated per step), checks the outputs
 and the overflow gates, and prints a first step time. Then it runs the
 span-conv design probes (insmos_tpu_torch.tools.probe_extract, with and
 without --production, and probe_dotshapes) at their full case lists, each
-kernel held against its plain version. Any failure raises and ends the run
-with a non-zero exit code; the line before the last lists every kernel,
-the last line is the device JSON. ``--details PATH`` also writes the
-per-class kernel times, step times, gates and probe readings to PATH as
-JSON.
+kernel held against its plain version, and last the micro probes (T1-T9:
+micro_pallas, micro_pallas2, micro_lanegather, micro_lanegather2,
+probe_tala) and the rowconv probe (T11: probe_pallas_rowconv) at the TPU
+probes' full sizes. Any failure raises and ends the run with a non-zero
+exit code; the line before the last lists every kernel, the last line is
+the device JSON. ``--details PATH`` also writes the per-class kernel
+times, step times, gates and probe readings to PATH as JSON.
 
 Needs one CUDA device; imports no jax.
 """
@@ -42,8 +44,15 @@ from insmos_tpu_torch import kernels, setup_device
 from insmos_tpu_torch.pipeline import InferencePipeline
 from insmos_tpu_torch.sparse import span_conv as SC
 from insmos_tpu_torch.tools import card_line, cuda_ms
+from insmos_tpu_torch.tools import micro_kernels as MK
+from insmos_tpu_torch.tools import micro_lanegather as MLG
+from insmos_tpu_torch.tools import micro_lanegather2 as MLG2
+from insmos_tpu_torch.tools import micro_pallas as MP
+from insmos_tpu_torch.tools import micro_pallas2 as MP2
 from insmos_tpu_torch.tools import probe_dotshapes as PD
 from insmos_tpu_torch.tools import probe_extract as PE
+from insmos_tpu_torch.tools import probe_pallas_rowconv as RC
+from insmos_tpu_torch.tools import probe_tala as PT
 from insmos_tpu_torch.utils.params import init_params, make_model
 
 N_SCANS = 12
@@ -51,6 +60,9 @@ N_SCANS = 12
 # float32 products (bf16 operands widen exactly), in another order, over
 # up to kx*TC = 1440 terms per group plus the groups and slots
 TOL = 5e-4
+# the micro probes (T1-T9) and the rowconv probe (T11), in the order of
+# their TPU kernels
+MICRO_PROBES = (MP, MP2, MLG, MLG2, PT, RC)
 # one CUDA kernel replaces both TPU kernels; its launches are counted per
 # part (every launch runs main windows, those with slots run slots too)
 KERNELS = [
@@ -384,6 +396,38 @@ def phase_probes():
     return entries, dict(extract=ext, production=prod, dotshapes=dots)
 
 
+def phase_micro():
+    """The micro probes T1-T9 (row gather, lower bound, per-lane gather)
+    and the rowconv probe T11 through their entry points at the TPU probes'
+    full sizes, with every launch count set to 0 just before and read just
+    after. Each probe holds every kernel output it times against its plain
+    version (gathers and search bit for bit, rowconv within 1e-4 x max(1,
+    max|plain|)) and raises otherwise. Returns one ``kernels`` entry per TPU
+    kernel (ms and plain ms summed over its cases) and the readings."""
+    MK.KERNEL.reset_counts()
+    RC.KERNEL.reset_counts()
+    readings = [r for mod in MICRO_PROBES for r in mod.main()]
+    counts = {**MK.KERNEL.launches, **RC.KERNEL.launches}
+    entries = []
+    for mod in MICRO_PROBES:
+        for tag, rep in mod.REPLACES.items():
+            rs = [r for r in readings if r["tag"] == tag]
+            entries.append(dict(
+                name=f"{tag} {rs[0]['kernel']}", route="cuda",
+                source=rs[0]["source"], replaces=rep,
+                launches=sum(r["launches"] for r in rs),
+                max_abs_err=max(r["max_abs_err"] for r in rs),
+                ms=sum(r["ms"] for r in rs),
+                plain_ms=sum(r["plain_ms"] for r in rs)))
+    if (not all(counts.values()) or not all(e["launches"] for e in entries)
+            or sum(e["launches"] for e in entries) != sum(counts.values())):
+        raise AssertionError(f"micro kernel launch counters {counts}, per "
+                             f"TPU kernel {[e['launches'] for e in entries]}")
+    print(f"micro probes: {len(readings)} cases of {len(entries)} TPU kernels "
+          f"agree with their plain versions; launches {counts}")
+    return entries, readings
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--details", help="write run details to this JSON file")
@@ -410,13 +454,14 @@ def main() -> int:
           f"over the {len(full)} full-window steps = {1e3 / med:.2f} scans/s "
           f"on {card}; all steps ms {[round(t, 1) for t in step_ms]}")
     probe_entries, probes = phase_probes()
+    micro_entries, probes["micro"] = phase_micro()
     report = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "insmos_tpu_torch/csrc/span_conv.cu", "replaces": rep,
          "launches": launches[key], "max_abs_err": err[key],
          "ms": times[key], "plain_ms": times[key + "_plain"]}
         for (name, rep), key in zip(KERNELS, ("main", "slots"))
-    ] + probe_entries}
+    ] + probe_entries + micro_entries}
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

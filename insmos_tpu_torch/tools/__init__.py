@@ -4,6 +4,12 @@ helpers they and ``chip_smoke.py`` share.
 
     python -m insmos_tpu_torch.tools.probe_extract [--production]
     python -m insmos_tpu_torch.tools.probe_dotshapes
+    python -m insmos_tpu_torch.tools.micro_pallas
+    python -m insmos_tpu_torch.tools.micro_pallas2
+    python -m insmos_tpu_torch.tools.micro_lanegather
+    python -m insmos_tpu_torch.tools.micro_lanegather2
+    python -m insmos_tpu_torch.tools.probe_tala
+    python -m insmos_tpu_torch.tools.probe_pallas_rowconv
 
 Every time they print is a reading of the card named on their first line.
 """
