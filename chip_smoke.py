@@ -4,22 +4,26 @@
     python3 chip_smoke.py [--details PATH]
 
 Builds the CUDA kernels from insmos_tpu_torch/csrc, holds the span-conv
-kernel against its plain PyTorch version on every span conv of one
-full-config streaming step, streams 12 scans of the HDL-64E raycast fixture
-through InferencePipeline.push_scan at the full default Config (ref-exact
-mode: full stem every step, window re-rotated per step), checks the outputs
-and the overflow gates, and prints a first step time. Then it runs the
+kernels (bf16 on the tensor cores, the main path; float32 on the CUDA
+cores) against their plain PyTorch version on every span conv of one
+full-config streaming step and prints each shape class's kernel time
+beside its bound (SC.span_conv_work), streams 12 scans of the HDL-64E
+raycast fixture through InferencePipeline.push_scan at the full default
+Config (ref-exact mode: full stem every step, window re-rotated per step),
+checks the outputs and the overflow gates, and prints a first step time. Then it runs the
 span-conv design probes (insmos_tpu_torch.tools.probe_extract, with and
 without --production, and probe_dotshapes) at their full case lists, each
 kernel held against its plain version, and last the micro probes (T1-T9:
 micro_pallas, micro_pallas2, micro_lanegather, micro_lanegather2,
 probe_tala) and the rowconv probe (T11: probe_pallas_rowconv) at the TPU
 probes' full sizes. Any failure raises and ends the run with a non-zero
-exit code; the line before the last lists every kernel, the last line is
-the device JSON. ``--details PATH`` also writes the per-class kernel
+exit code; the line before the last lists every kernel with its launches,
+error, time, plain time, bound and one-call PyTorch time, the last line
+is the device JSON. ``--details PATH`` also writes the per-class kernel
 times, step times, gates and probe readings to PATH as JSON.
 
-Needs one CUDA device; imports no jax.
+Needs one CUDA device; imports no jax and nothing of the JAX package
+``insmos_tpu`` (the port keeps its own Config and HDL-64E fixture).
 """
 
 from __future__ import annotations
@@ -38,9 +42,9 @@ import time
 import numpy as np
 import torch
 
-from insmos_tpu.config import Config
-from insmos_tpu.data.hdl64 import _make_world, raycast_scan
 from insmos_tpu_torch import kernels, setup_device
+from insmos_tpu_torch.config import Config
+from insmos_tpu_torch.data.hdl64 import make_stream
 from insmos_tpu_torch.pipeline import InferencePipeline
 from insmos_tpu_torch.sparse import span_conv as SC
 from insmos_tpu_torch.tools import card_line, cuda_ms
@@ -58,7 +62,8 @@ from insmos_tpu_torch.utils.params import init_params, make_model
 N_SCANS = 12
 # |kernel - plain| <= TOL * max(1, max|plain|): both sum the same exact
 # float32 products (bf16 operands widen exactly), in another order, over
-# up to kx*TC = 1440 terms per group plus the groups and slots
+# up to kx*TC = 1440 terms per group (bf16: per group on the tensor cores)
+# plus the groups and slots
 TOL = 5e-4
 # the micro probes (T1-T9) and the rowconv probe (T11), in the order of
 # their TPU kernels
@@ -69,36 +74,6 @@ KERNELS = [
     ("span_conv (main windows)", "insmos_tpu/sparse/span_conv.py:1352"),
     ("span_conv (coverage slots)", "insmos_tpu/sparse/span_conv.py:1394"),
 ]
-
-
-def make_stream(cfg, n_steps: int, seed: int = 0):
-    """The ref-exact stream of bench.make_stream, without jax: a moving ego
-    (~11 m/s) turning at 0.01 rad/step raycasts the HDL-64E fixture world;
-    each scan is in its sensor frame and each step's transform carries the
-    real rotation. Returns (scans (n_i, 4), tfs (4, 4))."""
-    rng = np.random.default_rng(seed)
-    world = _make_world(rng)
-    ego_speed = np.array([1.1, 0.05])
-    P = cfg.runtime.max_points_per_scan
-    scans, tfs = [], []
-    prev_pose = None
-    for w in range(n_steps):
-        ego = ego_speed * w
-        scan, _ = raycast_scan(world, ego, w, rng)
-        psi = 0.01 * w
-        c, s = np.cos(psi), np.sin(psi)
-        pose = np.eye(4)
-        pose[:2, :2] = [[c, -s], [s, c]]
-        pose[:2, 3] = ego
-        scan_f = scan.astype(np.float32).copy()
-        scan_f[:, :2] = scan_f[:, :2] @ np.float32([[c, s], [-s, c]]).T
-        tf = (np.linalg.inv(pose) @ (prev_pose if prev_pose is not None
-                                     else pose)).astype(np.float32)
-        prev_pose = pose
-        n = min(len(scan_f), P)
-        scans.append(scan_f[rng.permutation(len(scan_f))[:n]])
-        tfs.append(tf)
-    return scans, tfs
 
 
 def phase_setup():
@@ -160,8 +135,18 @@ def shape_class(args) -> str:
     return f"{name} span{plan.span}"
 
 
+def total_bound(parts):
+    """(sum of bound_ms, what sets most of it) over readings that each
+    carry bound_ms and bound_by."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for p in parts:
+        by[p["bound_by"]] += p["bound_ms"]
+    return sum(by.values()), max(by, key=by.get)
+
+
 def phase_kernels(cfg, model, scans, tfs):
-    """Kernel vs plain on every span conv of one full-window step."""
+    """Kernel vs plain on every span conv of one full-window step, with the
+    bound of each (SC.span_conv_work on its bf16 operands)."""
     pipe = InferencePipeline(cfg, model, "cuda")
     W = cfg.model.n_past_steps
     for s, tf in zip(scans[:W - 1], tfs[:W - 1]):
@@ -171,6 +156,8 @@ def phase_kernels(cfg, model, scans, tfs):
     torch.cuda.synchronize()
     err = {"main": 0.0, "slots": 0.0}
     times = {k: 0.0 for k in ("main", "slots", "main_plain", "slots_plain")}
+    bounds = {"main": [], "slots": []}
+    rel = 0.0
     classes = {}
     for args, out in rec.calls:
         x_keys, feats_cat, weights, parts, oc, ov, plan, T_out = args
@@ -196,10 +183,24 @@ def phase_kernels(cfg, model, scans, tfs):
                 f"kernel disagrees with plain on {cls}: bf16 {e_full:.3g} "
                 f"main {e_main:.3g} f32 {e32:.3g} (scale {scale:.3g})")
         err["main"] = max(err["main"], e_main)
+        rel = max(rel, e_full / scale, e_main / scale)
         if live_slots:
             err["slots"] = max(err["slots"], e_full)
+        w_main = SC.span_conv_work(*core, main_plan)
+        w_full = SC.span_conv_work(*core, plan)
+        bounds["main"].append(w_main)
+        bounds["slots"].append(kernels.bound(0, w_full["flops"]
+                                             - w_main["flops"]))
         t_main = cuda_ms(lambda: SC.span_conv_core_cuda(*core, main_plan))
         t_full = cuda_ms(lambda: SC.span_conv_core_cuda(*core, plan))
+        # the same conv on the CUDA cores with float32 operands, and the
+        # host time of the bf16 kernel's weight re-layout
+        core32 = (x_keys, *SC._prepare(*f32[1:4], plan, T_out), oc, ov)
+        t_f32 = cuda_ms(lambda: SC.span_conv_core_cuda(*core32, plan))
+        h0 = time.perf_counter()
+        for _ in range(20):
+            SC.mma_layout(wg)
+        layout_us = (time.perf_counter() - h0) / 20 * 1e6
         p_main = cuda_ms(lambda: SC.span_conv_core_plain(*core, main_plan), 1)
         p_full = cuda_ms(lambda: SC.span_conv_core_plain(*core, plan), 1)
         times["main"] += t_main
@@ -208,8 +209,19 @@ def phase_kernels(cfg, model, scans, tfs):
         times["slots_plain"] += max(p_full - p_main, 0.0)
         c = classes.setdefault(cls, dict(calls=0, V=0, Vin=0, TC=0, TO=0,
                                          live_slots=0, kernel_ms=0.0,
-                                         plain_ms=0.0, max_err=0.0))
+                                         plain_ms=0.0, bound_ms=0.0,
+                                         bound_ops_ms=0.0, max_err=0.0,
+                                         matched=0, useful_tflop=0.0,
+                                         f32_kernel_ms=0.0,
+                                         layout_host_us=0.0))
         c["calls"] += 1
+        c["bound_ms"] += w_full["bound_ms"]
+        if w_full["bound_by"] == "operations":
+            c["bound_ops_ms"] += w_full["bound_ms"]
+        c["matched"] += w_full["matched"]
+        c["useful_tflop"] += w_full["flops"] / 1e12
+        c["f32_kernel_ms"] += t_f32
+        c["layout_host_us"] += layout_us
         c["V"] = max(c["V"], oc.shape[0])
         c["Vin"] = max(c["Vin"], x_keys.shape[0])
         c["TC"] = max(c["TC"], feats.shape[1])
@@ -227,10 +239,15 @@ def phase_kernels(cfg, model, scans, tfs):
     if not any(c["live_slots"] for c in classes.values()):
         raise AssertionError("no recorded conv had live coverage slots")
     torch.cuda.synchronize()
+    for c in classes.values():
+        c["bound_by"] = ("operations" if c.pop("bound_ops_ms")
+                         > c["bound_ms"] / 2 else "bytes")
+        c["share_of_bound"] = c["bound_ms"] / c["kernel_ms"]
     print(f"kernel vs plain: {len(rec.calls)} span convs of one full-window "
           f"step agree within {TOL} x max(1, |plain|) in bf16 and f32 "
-          f"(max abs err main {err['main']:.3g}, with slots {err['slots']:.3g})")
-    return err, times, classes
+          f"(max abs err main {err['main']:.3g}, with slots {err['slots']:.3g};"
+          f" bf16 max abs err / max(1, |plain|) {rel:.3g})")
+    return err, times, classes, {k: total_bound(v) for k, v in bounds.items()}
 
 
 def small_config():
@@ -359,6 +376,7 @@ def phase_probes():
         raise AssertionError(f"probe kernel launch counters {counts}")
 
     entries = []
+    ext_bound = total_bound(ext)
     for v in PE.VARIANTS:
         entries.append(dict(
             name=f"probe_extract {PE.LABELS[v]}", route="cuda",
@@ -367,11 +385,13 @@ def phase_probes():
             launches=ext_launches[v],
             max_abs_err=max(r["variants"][v]["err"] for r in ext),
             ms=sum(r["variants"][v]["ms"] for r in ext),
-            plain_ms=sum(r["plain_ms"] for r in ext)))
+            plain_ms=sum(r["plain_ms"] for r in ext),
+            bound_ms=ext_bound[0], bound_by=ext_bound[1], library_ms=None))
     # D runs the main windows alone (span_conv.py::_kernel), E adds the
     # coverage slots (::_gw_kernel)
     for key, what, rep in (("D", "no slots", "1352"),
                            ("E", "with slots", "1394")):
+        b_ms, b_by = total_bound([r[key] for r in prod])
         entries.append(dict(
             name=f"span_conv, probe_extract --production {key} ({what})",
             route="cuda", source="insmos_tpu_torch/csrc/span_conv.cu",
@@ -379,7 +399,9 @@ def phase_probes():
             launches=prod_launches[key],
             max_abs_err=max(r[key]["err"] for r in prod),
             ms=sum(r[key]["ms"] for r in prod),
-            plain_ms=sum(r[key]["plain_ms"] for r in prod)))
+            plain_ms=sum(r[key]["plain_ms"] for r in prod),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    dot_bound = total_bound(dots)
     for v in PD.VARIANTS:
         entries.append(dict(
             name=f"probe_dot {v}", route="cuda",
@@ -389,7 +411,9 @@ def phase_probes():
             max_abs_err=max(c["err"] for r in dots
                             for c in r["kernel"][v].values()),
             ms=sum(r["kernel"][v][1]["ms"] for r in dots),
-            plain_ms=sum(r["plain_ms"] for r in dots)))
+            plain_ms=sum(r["plain_ms"] for r in dots),
+            bound_ms=dot_bound[0], bound_by=dot_bound[1],
+            library_ms=sum(r["library_ms"] for r in dots)))
     print(f"probes: probe_extract A/B/C at {len(ext)} cases, D/E at "
           f"{len(prod)} production cases, probe_dot mma/fma at {len(dots)} "
           f"shapes agree with their plain versions; launches {counts}")
@@ -412,13 +436,17 @@ def phase_micro():
     for mod in MICRO_PROBES:
         for tag, rep in mod.REPLACES.items():
             rs = [r for r in readings if r["tag"] == tag]
+            b_ms, b_by = total_bound(rs)
+            libs = [r["library_ms"] for r in rs]
             entries.append(dict(
                 name=f"{tag} {rs[0]['kernel']}", route="cuda",
                 source=rs[0]["source"], replaces=rep,
                 launches=sum(r["launches"] for r in rs),
                 max_abs_err=max(r["max_abs_err"] for r in rs),
                 ms=sum(r["ms"] for r in rs),
-                plain_ms=sum(r["plain_ms"] for r in rs)))
+                plain_ms=sum(r["plain_ms"] for r in rs),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=None if None in libs else sum(libs)))
     if (not all(counts.values()) or not all(e["launches"] for e in entries)
             or sum(e["launches"] for e in entries) != sum(counts.values())):
         raise AssertionError(f"micro kernel launch counters {counts}, per "
@@ -443,7 +471,7 @@ def main() -> int:
     model = make_model(cfg, params, state, device)
     scans, tfs = make_stream(cfg, N_SCANS, seed=0)
 
-    err, times, classes = phase_kernels(cfg, model, scans, tfs)
+    err, times, classes, bounds = phase_kernels(cfg, model, scans, tfs)
     ref_err = phase_reference(device)
     print(f"small-input reference: card vs CPU point logits max abs err "
           f"{ref_err:.3g} (tolerance 1e-3)")
@@ -459,7 +487,9 @@ def main() -> int:
         {"name": name, "route": "cuda",
          "source": "insmos_tpu_torch/csrc/span_conv.cu", "replaces": rep,
          "launches": launches[key], "max_abs_err": err[key],
-         "ms": times[key], "plain_ms": times[key + "_plain"]}
+         "ms": times[key], "plain_ms": times[key + "_plain"],
+         "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+         "library_ms": None}
         for (name, rep), key in zip(KERNELS, ("main", "slots"))
     ] + probe_entries + micro_entries}
     if args.details:
@@ -470,7 +500,9 @@ def main() -> int:
                            step_ms=step_ms, gates=gates, ref_err=ref_err,
                            probes=probes), fh, indent=1)
     for name, c in sorted(classes.items()):
-        print(f"  class {name}: {json.dumps(c)}")
+        print(f"  class {name}: kernel {c['kernel_ms']:.3f} ms, bound "
+              f"{c['bound_ms']:.4f} ms set by {c['bound_by']}, share of "
+              f"bound {c['share_of_bound']:.4f}; {json.dumps(c)}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,10 @@
 
 The port of the JAX package ``insmos_tpu`` (kept beside it as the
 reference). Module layout and function names follow ``insmos_tpu`` one to
-one, so every counterpart is found at the same path. The jax-free modules
-of the reference (``insmos_tpu.config``, ``insmos_tpu.constants``,
-``insmos_tpu.data.hdl64``, ``insmos_tpu.data.sample``) are imported, not
-copied; nothing here imports jax.
+one, so every counterpart is found at the same path. The port imports
+nothing of ``insmos_tpu`` and no jax: what it needs of the reference's
+jax-free modules it keeps as its own copies (``config``, ``data.hdl64``).
+Its entry points run on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations

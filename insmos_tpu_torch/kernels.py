@@ -24,6 +24,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOADED: dict = {}
 
+# NVIDIA H100 SXM peaks (data sheet, dense rates at the 700 W limit): bf16
+# tensor-core FLOP/s and HBM bytes/s
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(nbytes: float, flops: float = 0.0) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of ``flops`` at the bf16 tensor-core peak and ``nbytes`` (each input
+    read once, each output written once) at the memory rate. Returns
+    ``bound_ms`` and ``bound_by`` ("operations" or "bytes")."""
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return dict(bound_ms=max(t_ops, t_mem) * 1e3,
+                bound_by="operations" if t_ops > t_mem else "bytes")
+
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))

@@ -6,7 +6,8 @@ current frame by the step's rigid transform.
 The window (points, counts, mask) lives on the device; each step uploads
 one scan and one 4x4 transform, rolls the window, transforms the stored
 scans and runs the model. The incremental (fixed-frame) stem is not ported
-yet: a config with ``runtime.incremental_stem`` is refused.
+yet: a config with ``runtime.incremental_stem`` is refused. The pipeline
+runs on the card unless ``device`` names the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .nn.model import InsMOSModel
 
 
 class InferencePipeline:
-    def __init__(self, cfg, model: InsMOSModel, device):
+    def __init__(self, cfg, model: InsMOSModel, device="cuda"):
         if cfg.runtime.incremental_stem:
             raise NotImplementedError(
                 "the incremental stem is not ported; use incremental_stem=False")

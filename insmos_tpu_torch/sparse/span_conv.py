@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from ..kernels import bound
 from .slab import INT32_MAX, Slab, _compact_by_sort, _groups_yz, t_band
 from .tensor import KEY_SENTINEL
 
@@ -484,24 +485,15 @@ def _site_queries(ocoords, ovalid, plan, ky, kz):
     return (iz * Y + iy) * X + xbase, xbase, row_ok
 
 
-def span_conv_core_plain(x_keys, feats, wg, out_coords, out_valid,
-                         plan: SpanPlan):
-    """Plain PyTorch span conv on folded weights.
-
-    x_keys (Vin,) int32 sorted; feats (Vin, TC); wg (G, kx*TC, TO) in the
-    feature dtype. Each tap's input row is found by searchsorted over the
-    whole key array and then accepted only inside the block's main window
-    (live block, non-empty pair) or inside a slot window of the block at
-    rows >= excl -- counted once per window that holds it, exactly as the
-    TPU kernels sum over windows. Products are taken in float32 (exact for
-    bf16 operands) and accumulated in float32."""
-    kx = int(plan.kernel3[0])
+def _tap_table(x_keys, out_coords, out_valid, plan: SpanPlan, G: int,
+               kx: int):
+    """(pos, mult), each (G, Vp, kx): the input row (or -1) that every
+    (group, padded output row, tap) matches by key over the whole key
+    array, and how many of the block's windows hold it (main window of a
+    live block and non-empty pair; slot windows at rows >= excl)."""
     X = plan.in_dims[0]
-    G = wg.shape[0]
-    TC = feats.shape[1]
-    TO = wg.shape[2]
     bs, span = plan.bs, plan.span
-    dev = feats.device
+    dev = x_keys.device
     Vin = x_keys.shape[0]
     V = out_coords.shape[0]
     NB = -(-V // bs)
@@ -533,38 +525,89 @@ def span_conv_core_plain(x_keys, feats, wg, out_coords, out_valid,
         keep_blk = (live & (plan.emp[g] == 0))[blk][:, None]
         mult[g] = (keep_blk & (pos >= start) & (pos < start + span)).float()
         pos_g.append(pos)
+    pos = torch.stack(pos_g)
     if plan.gs.shape[1]:
         sg, sbk, sr, sexcl = plan.gs.to(torch.int64)
         ok_s = sbk >= 0
         rows = (sbk.clamp(min=0)[:, None] * bs
                 + torch.arange(bs, device=dev)[None])  # (JS, bs)
-        pos = torch.stack(pos_g)[sg[:, None], rows]  # (JS, bs, kx)
+        pos_s = pos[sg[:, None], rows]  # (JS, bs, kx)
         lo = torch.maximum(sr * 16, sexcl)[:, None, None]
         hi = (sr * 16 + span)[:, None, None]
-        inw = (ok_s[:, None, None] & (pos >= 0) & (pos >= lo)
-               & (pos < hi)).float()
+        inw = (ok_s[:, None, None] & (pos_s >= 0) & (pos_s >= lo)
+               & (pos_s < hi)).float()
         flat = (sg[:, None] * Vp + rows).reshape(-1)
         mult.view(G * Vp, kx).index_add_(0, flat, inw.reshape(-1, kx))
+    return pos, mult
 
-    out = torch.zeros((Vp, TO), dtype=torch.float32, device=dev)
+
+def span_conv_core_plain(x_keys, feats, wg, out_coords, out_valid,
+                         plan: SpanPlan):
+    """Plain PyTorch span conv on folded weights.
+
+    x_keys (Vin,) int32 sorted; feats (Vin, TC); wg (G, kx*TC, TO) in the
+    feature dtype. Each tap's input row is found by searchsorted over the
+    whole key array and then accepted only inside the block's main window
+    (live block, non-empty pair) or inside a slot window of the block at
+    rows >= excl -- counted once per window that holds it, exactly as the
+    TPU kernels sum over windows. Products are taken in float32 (exact for
+    bf16 operands) and accumulated in float32."""
+    kx = int(plan.kernel3[0])
+    G = wg.shape[0]
+    TC = feats.shape[1]
+    TO = wg.shape[2]
+    Vin = x_keys.shape[0]
+    V = out_coords.shape[0]
+    pos, mult = _tap_table(x_keys, out_coords, out_valid, plan, G, kx)
+    Vp = pos.shape[1]
+    out = torch.zeros((Vp, TO), dtype=torch.float32, device=feats.device)
     fpad = torch.cat([feats, feats.new_zeros((1, TC))]).float()
     for g in range(G):
-        pos = pos_g[g]
-        rows = torch.where(pos >= 0, pos, Vin)
+        rows = torch.where(pos[g] >= 0, pos[g], Vin)
         a = fpad[rows] * mult[g][..., None]  # (Vp, kx, TC)
         out += a.reshape(Vp, kx * TC) @ wg[g].float()
     return out[:V]
+
+
+def span_conv_work(x_keys, feats, wg, out_coords, out_valid,
+                   plan: SpanPlan) -> dict:
+    """The work one span conv needs on these inputs, and the least time the
+    card could take for it (``kernels.bound``: NVIDIA H100 SXM, 989
+    TFLOP/s dense bf16, 3.35 TB/s).
+
+    ``matched``: (site, group, tap) triples whose input row lies in one of
+    the block's windows; ``flops``: 2 x the non-zero weight entries of
+    every matched tap (zero weights and unmatched taps need no work);
+    ``bytes``: keys, features and weights read once, coordinates and valid
+    flags (int32) read once, the float32 output written once;
+    ``bound_ms`` the larger of flops over the peak rate and bytes over the
+    memory rate, ``bound_by`` which of the two sets it."""
+    kx = int(plan.kernel3[0])
+    G, K, TO = wg.shape
+    Vin, TC = feats.shape
+    V = out_coords.shape[0]
+    _, mult = _tap_table(x_keys, out_coords, out_valid, plan, G, kx)
+    taps = (mult > 0).sum(dim=1).to(torch.int64)  # (G, kx)
+    nnz = (wg.reshape(G, kx, TC, TO) != 0).sum(dim=(2, 3)).to(torch.int64)
+    matched = int(taps.sum())
+    flops = 2 * int((taps * nnz).sum())
+    esize = feats.element_size()
+    nbytes = (4 * Vin + esize * Vin * TC + wg.element_size() * G * K * TO
+              + 4 * 4 * V + 4 * V * TO)
+    return dict(matched=matched, flops=flops, bytes=nbytes,
+                **bound(nbytes, flops))
 
 
 # ----------------------------------------------------------------- kernel
 class SpanConvKernels:
     """ctypes binding of csrc/span_conv.cu with its launch counters.
 
-    One kernel replaces both TPU kernels: ``main_launches`` counts its
+    One launch replaces both TPU kernels: ``main_launches`` counts the
     launches (each runs the main windows, span_conv.py::_kernel) and
     ``slot_launches`` those that also ran coverage slots (the plan has
-    slots: span_conv.py::_gw_kernel). Both move only where the kernel is
-    launched."""
+    slots: span_conv.py::_gw_kernel). Both move only where a kernel is
+    launched, whichever of the two (bf16 on the tensor cores, float32 on
+    the CUDA cores) the operands' type selects."""
 
     def __init__(self):
         self.main_launches = 0
@@ -581,10 +624,15 @@ class SpanConvKernels:
 
             lib = load_library()
             ptr, i = ctypes.c_void_p, ctypes.c_int
-            # 10 inputs, JS, slot_off, out, 18 geometry ints + is_bf16, stream
-            lib.span_conv.argtypes = ([ptr] * 10 + [i, ptr, ptr] + [i] * 19
-                                      + [ptr])
-            lib.span_conv.restype = i
+            # 10 inputs, JS, slot_off, out, 18 geometry ints, stream
+            lib.span_conv_f32.argtypes = ([ptr] * 10 + [i, ptr, ptr]
+                                          + [i] * 18 + [ptr])
+            lib.span_conv_f32.restype = i
+            # 10 inputs, JS, slot_off, out, 18 geometry ints, Kp, TOP,
+            # nw8, ntiles, vec, stream
+            lib.span_conv_mma.argtypes = ([ptr] * 10 + [i, ptr, ptr]
+                                          + [i] * 23 + [ptr])
+            lib.span_conv_mma.restype = i
             self._lib = lib
         return self._lib
 
@@ -604,12 +652,36 @@ def _check(t, name, dtype, shape, device):
 
 
 KX_MAX, BS_MAX, SPAN_MAX = 5, 128, 512  # limits of csrc/span_conv.cu
+# the bf16 kernel: K chunk, padded-K limit, widest column tile and the
+# tile widths (n8 column tiles per warp, N = 16 * nw8) it is built for
+MMA_KC, MMA_KP_MAX, MMA_N_MAX = 32, 4096, 160
+MMA_NW8 = (1, 2, 3, 4, 5, 6, 8, 10)
+
+
+def mma_layout(wg):
+    """The bf16 kernel's weight layout: (wp, nw8, ntiles).
+
+    TO splits into ``ntiles`` equal column tiles of at most 160 columns
+    (320 -> 2 x 160), each padded to N = 16 * nw8; wp (G, Kp, ntiles * N)
+    is wg zero-padded to Kp (a multiple of the 32-deep K chunk) rows and
+    ntiles * N columns."""
+    G, K, TO = wg.shape
+    ntiles = -(-TO // MMA_N_MAX)
+    nw8 = next(n for n in MMA_NW8 if 16 * n * ntiles >= TO)
+    Kp = -(-K // MMA_KC) * MMA_KC
+    if Kp > MMA_KP_MAX:
+        raise ValueError(f"folded weight rows {K} above {MMA_KP_MAX}")
+    wp = wg.new_zeros((G, Kp, ntiles * 16 * nw8))
+    wp[:, :K, :TO] = wg
+    return wp, nw8, ntiles
 
 
 def span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
                         plan: SpanPlan):
     """The CUDA kernel on folded weights (same contract as
-    span_conv_core_plain), launched once on the current stream."""
+    span_conv_core_plain), launched once on the current stream: bf16
+    operands run the tensor-core kernel, float32 operands the CUDA-core
+    kernel."""
     dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"span_conv_core_cuda needs CUDA tensors, got {dev}")
@@ -630,6 +702,7 @@ def span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
     dead = (_pad_rows(ovalid, NB * bs, 0).reshape(NB, bs).sum(dim=1) == 0).to(
         torch.int32)
     _check(x_keys, "x_keys", torch.int32, (Vin,), dev)
+    _check(feats, "feats", feats.dtype, (Vin, TC), dev)
     _check(wg, "wg", feats.dtype, (G, kx * TC, TO), dev)
     _check(ocoords, "out_coords", torch.int32, (V, 3), dev)
     _check(plan.sb, "sb", torch.int32, (G, NB), dev)
@@ -650,13 +723,24 @@ def span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
     X, Y, Z = plan.in_dims
     sx, sy, sz = plan.stride3
     px, py, pz = plan.pad3
-    err = SPAN_KERNELS.lib().span_conv(
-        x_keys.data_ptr(), feats.data_ptr(), wg.data_ptr(), ocoords.data_ptr(),
-        ovalid.data_ptr(), plan.sb.data_ptr(), plan.emp.data_ptr(),
-        dead.data_ptr(), plan.gp.data_ptr(), gs_ptr, JS, off_ptr,
-        out.data_ptr(), V, Vin, NB, bs, G, kx, TC, TO, span, X, Y, Z, sx, sy,
-        sz, px, py, pz, int(feats.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+    geom = (V, Vin, NB, bs, G, kx, TC, TO, span, X, Y, Z, sx, sy, sz, px, py,
+            pz)
+    plan_ptrs = (ocoords.data_ptr(), ovalid.data_ptr(), plan.sb.data_ptr(),
+                 plan.emp.data_ptr(), dead.data_ptr(), plan.gp.data_ptr(),
+                 gs_ptr, JS, off_ptr, out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = SPAN_KERNELS.lib()
+    if feats.dtype == torch.bfloat16:
+        wp, nw8, ntiles = mma_layout(wg)
+        align = feats.data_ptr() % 16
+        vec = 8 if TC % 8 == 0 and align == 0 else (
+            2 if TC % 2 == 0 and align % 4 == 0 else 1)
+        err = lib.span_conv_mma(
+            x_keys.data_ptr(), feats.data_ptr(), wp.data_ptr(), *plan_ptrs,
+            *geom, wp.shape[1], wp.shape[2], nw8, ntiles, vec, stream)
+    else:
+        err = lib.span_conv_f32(x_keys.data_ptr(), feats.data_ptr(),
+                                wg.data_ptr(), *plan_ptrs, *geom, stream)
     if err:
         raise RuntimeError(f"span_conv launch failed: CUDA error {err}")
     SPAN_KERNELS.main_launches += 1

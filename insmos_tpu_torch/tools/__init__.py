@@ -10,6 +10,7 @@ helpers they and ``chip_smoke.py`` share.
     python -m insmos_tpu_torch.tools.micro_lanegather2
     python -m insmos_tpu_torch.tools.probe_tala
     python -m insmos_tpu_torch.tools.probe_pallas_rowconv
+    python -m insmos_tpu_torch.tools.profile_step
 
 Every time they print is a reading of the card named on their first line.
 """

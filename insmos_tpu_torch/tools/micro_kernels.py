@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..kernels import KernelEntry
+from ..kernels import KernelEntry, bound
 from ..sparse import span_conv as SC
 from . import card_line, cuda_ms, max_err
 
@@ -48,10 +48,15 @@ def lower_bound_plain(keys, q):
     return torch.searchsorted(keys, q, side="left", out_int32=True)
 
 
+def lane_index(idx, S, stride):
+    """The absolute int64 row index (i // S) * stride + idx[i, l]."""
+    base = torch.arange(idx.shape[0], device=idx.device) // S * stride
+    return base[:, None] + idx.long()
+
+
 def lane_gather_plain(op, idx, S, stride):
     """out[i, l] = op[(i // S) * stride + idx[i, l], l]."""
-    base = torch.arange(idx.shape[0], device=idx.device) // S * stride
-    return torch.gather(op, 0, base[:, None] + idx.long())
+    return torch.gather(op, 0, lane_index(idx, S, stride))
 
 
 def _need_cuda(name, t):
@@ -140,13 +145,17 @@ def to_device(*arrays):
             for a in arrays]
 
 
-def run_exact(tag, name, kernel, plain, variant, amount, unit, iters=10):
+def run_exact(tag, name, kernel, plain, variant, amount, unit, inputs,
+              library, iters=10):
     """``kernel()`` (one launch of ``variant``) against ``plain()`` bit for
-    bit, then both timed with CUDA events. ``amount`` is the work of one
-    call in GB moved or in millions of queries; ``unit`` names its rate.
-    Returns the reading."""
+    bit, then both timed with CUDA events, and ``library()``, one PyTorch
+    call that computes the same function, beside them. ``amount`` is the
+    work of one call in GB moved or in millions of queries; ``unit`` names
+    its rate. The bound counts the bytes of ``inputs`` read once and of the
+    output written once. Returns the reading."""
     before = KERNEL.launches[variant]
     got, ref = kernel(), plain()
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, got))
     if (got.shape != ref.shape or got.dtype != ref.dtype
             or not torch.equal(got.view(torch.int32), ref.view(torch.int32))):
         bad = (int((got.view(torch.int32) != ref.view(torch.int32)).sum())
@@ -157,12 +166,16 @@ def run_exact(tag, name, kernel, plain, variant, amount, unit, iters=10):
     del got, ref
     ms = cuda_ms(kernel, iters)
     plain_ms = cuda_ms(plain, iters)
+    library_ms = cuda_ms(library, iters)
     res = dict(tag=tag, name=name, kernel=NAMES[variant], source=SOURCE,
-               ms=ms, plain_ms=plain_ms, max_abs_err=err,
-               launches=KERNEL.launches[variant] - before, unit=unit,
-               rate=amount / ms * 1e3, plain_rate=amount / plain_ms * 1e3)
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               max_abs_err=err, launches=KERNEL.launches[variant] - before,
+               unit=unit, rate=amount / ms * 1e3,
+               plain_rate=amount / plain_ms * 1e3, **bound(nbytes))
     print(f"{tag} {name:44s} {ms:9.4f} ms {res['rate']:9.1f} {unit}  plain "
-          f"{plain_ms:9.4f} ms {res['plain_rate']:9.1f} {unit}", flush=True)
+          f"{plain_ms:9.4f} ms {res['plain_rate']:9.1f} {unit}  library "
+          f"{library_ms:9.4f} ms  bound {res['bound_ms']:9.4f} ms",
+          flush=True)
     return res
 
 

@@ -17,6 +17,7 @@ the first line of the output.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import setup_device
 from . import micro_kernels as MK
@@ -42,11 +43,13 @@ def run_case(S, dtype, NB, iters=10):
     MK.check_range(idx, S)
     op, idx = MK.to_device(op, idx)
     n = NB * S * 128
+    lane = MK.lane_index(idx, S, S)
     return MK.run_exact("T8", f"lane gather S={S} x {NB} blocks "
                         f"{np.dtype(dtype).name}",
                         lambda: MK.lane_gather_cuda(op, idx, S, S),
                         lambda: MK.lane_gather_plain(op, idx, S, S), "lane",
-                        MK.gather_gb(n, n), "GB/s", iters)
+                        MK.gather_gb(n, n), "GB/s", (op, idx),
+                        lambda: torch.gather(op, 0, lane), iters)
 
 
 def main(iters=10):

@@ -21,6 +21,7 @@ the first line of the output.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import setup_device
 from . import micro_kernels as MK
@@ -57,15 +58,19 @@ def main(iters=10):
         MK.run_exact("T1", f"gather {Q} from {T} (width 1)",
                      lambda: MK.gather_rows_cuda(table, idx),
                      lambda: MK.gather_rows_plain(table, idx), "rows",
-                     MK.gather_gb(Q, Q), "GB/s", iters),
+                     MK.gather_gb(Q, Q), "GB/s", (table, idx),
+                     lambda: torch.index_select(table, 0, idx), iters),
         MK.run_exact("T2", f"lower bound of {Q} in {T} keys",
                      lambda: MK.lower_bound_cuda(keys, queries),
                      lambda: MK.lower_bound_plain(keys, queries), "bsearch",
-                     Q / 1e6, "Mq/s", iters),
+                     Q / 1e6, "Mq/s", (keys, queries),
+                     lambda: torch.searchsorted(keys, queries,
+                                                out_int32=True), iters),
         MK.run_exact("T3", f"row gather {QR} x 8 from {T}",
                      lambda: MK.gather_rows_cuda(feats, ridx),
                      lambda: MK.gather_rows_plain(feats, ridx), "rows",
-                     MK.gather_gb(QR, QR * 8), "GB/s", iters),
+                     MK.gather_gb(QR, QR * 8), "GB/s", (feats, ridx),
+                     lambda: torch.index_select(feats, 0, ridx), iters),
     ]
 
 

@@ -23,6 +23,7 @@ the first line of the output.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import setup_device
 from . import micro_kernels as MK
@@ -54,19 +55,24 @@ def main(iters=10):
     MK.check_range(case[1], T)
     MK.check_range(case[2], T, "idx2")
     table, idx, idx2, keys, q2 = MK.to_device(*case)
+    lane2 = MK.lane_index(idx2, QR, 0)
     return [
         MK.run_exact("T4", f"row gather {Q} x 128 from {T}",
                      lambda: MK.gather_rows_cuda(table, idx),
                      lambda: MK.gather_rows_plain(table, idx), "rows",
-                     MK.gather_gb(Q, Q * 128), "GB/s", iters),
+                     MK.gather_gb(Q, Q * 128), "GB/s", (table, idx),
+                     lambda: torch.index_select(table, 0, idx), iters),
         MK.run_exact("T5", f"lane gather ({QR}, 128) from ({T}, 128)",
                      lambda: MK.lane_gather_cuda(table, idx2, QR, 0),
                      lambda: MK.lane_gather_plain(table, idx2, QR, 0), "lane",
-                     MK.gather_gb(QR * 128, QR * 128), "GB/s", iters),
+                     MK.gather_gb(QR * 128, QR * 128), "GB/s", (table, idx2),
+                     lambda: torch.gather(table, 0, lane2), iters),
         MK.run_exact("T6", f"lower bound of ({QR}, 128) in {T} keys",
                      lambda: MK.lower_bound_cuda(keys, q2),
                      lambda: MK.lower_bound_plain(keys, q2), "bsearch",
-                     QR * 128 / 1e6, "Mq/s", iters),
+                     QR * 128 / 1e6, "Mq/s", (keys, q2),
+                     lambda: torch.searchsorted(keys, q2, out_int32=True),
+                     iters),
     ]
 
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import setup_device
-from ..kernels import KernelEntry
+from ..kernels import KernelEntry, bound
 from ..sparse import span_conv as SC
 from . import card_line, cuda_ms, max_err
 
@@ -110,9 +110,15 @@ def run_shape(name, M, K, N, n_dots, copies=(1,), iters=10):
             for x in make_operands(M, K, N))
     ref = dot_plain(a, b, reps)
     plain_ms = cuda_ms(lambda: dot_plain(a, b, reps), 1)
+    # one PyTorch call for the same sum: (M, reps*K) @ (reps*K, N)
+    a_cat, b_cat = a.repeat(1, reps), b.repeat(reps, 1)
+    library_ms = cuda_ms(lambda: torch.matmul(a_cat, b_cat), iters)
+    del a_cat, b_cat
     fl = 2 * M * K * N
+    # one copy: a and b read once, the float32 sum written once
     res = dict(name=name, M=M, K=K, N=N, reps=reps, plain_ms=plain_ms,
-               kernel={v: {} for v in VARIANTS})
+               library_ms=library_ms, kernel={v: {} for v in VARIANTS},
+               **bound(2 * (M * K + K * N) + 4 * M * N, fl * reps))
     for v in VARIANTS:
         for c in copies:
             err, scale = max_err(dot_cuda(a, b, reps, v, c), ref)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import setup_device
-from ..kernels import KernelEntry
+from ..kernels import KernelEntry, bound
 from ..sparse import span_conv as SC
 from . import card_line, cuda_ms, max_err
 
@@ -94,6 +94,21 @@ def case_tensors(case, device):
             t[4])
 
 
+def _extract_taps(keys, q, sb, nrows, *, kx, span, bs):
+    """(pos (V, kx), ok (G, V, kx)): each tap's key row found by
+    searchsorted over all keys, and whether it lies inside the block's
+    window [sb*16, sb*16 + span) of each group."""
+    V = q.shape[0]
+    dev = q.device
+    keys64 = keys.to(torch.int64)
+    qd = q.to(torch.int64)[:, None] + torch.arange(kx, device=dev)  # (V, kx)
+    pos = torch.searchsorted(keys64, qd.reshape(-1)).reshape(V, kx)
+    hit = (pos < nrows) & (keys64[pos.clamp(max=keys.shape[0] - 1)] == qd)
+    blk = torch.arange(V, device=dev) // bs
+    start = sb.to(torch.int64)[:, blk][..., None] * 16  # (G, V, 1)
+    return pos, hit & (pos >= start) & (pos < start + span)
+
+
 def extract_plain(keys, q, feats, wg, sb, *, kx, span, bs):
     """Plain PyTorch version: each tap's key row is found by searchsorted
     over all keys and accepted only inside the block's window
@@ -102,21 +117,26 @@ def extract_plain(keys, q, feats, wg, sb, *, kx, span, bs):
     V = q.shape[0]
     G, _, TOP = wg.shape
     nf, TCP = feats.shape
-    nrows = min(keys.shape[0], nf)
-    dev = feats.device
-    keys64 = keys.to(torch.int64)
-    qd = q.to(torch.int64)[:, None] + torch.arange(kx, device=dev)  # (V, kx)
-    pos = torch.searchsorted(keys64, qd.reshape(-1)).reshape(V, kx)
-    hit = (pos < nrows) & (keys64[pos.clamp(max=keys.shape[0] - 1)] == qd)
-    blk = torch.arange(V, device=dev) // bs
+    pos, ok = _extract_taps(keys, q, sb, min(keys.shape[0], nf), kx=kx,
+                            span=span, bs=bs)
     fpad = torch.cat([feats.float(), feats.new_zeros((1, TCP)).float()])
-    out = torch.zeros((V, TOP), dtype=torch.float32, device=dev)
+    out = torch.zeros((V, TOP), dtype=torch.float32, device=feats.device)
     for g in range(G):
-        start = sb[g].to(torch.int64)[blk][:, None] * 16
-        ok = hit & (pos >= start) & (pos < start + span)
-        rows = torch.where(ok, pos, nf)
+        rows = torch.where(ok[g], pos, nf)
         out += fpad[rows].reshape(V, kx * TCP) @ wg[g].float()
     return out
+
+
+def extract_bound(keys, q, feats, wg, sb, *, kx, span, bs):
+    """kernels.bound of one extraction: 2 * TCP * TOP FLOPs per matched
+    (site, group, tap), every input read once and the float32 output
+    written once."""
+    V, (nf, TCP), TOP = q.shape[0], feats.shape, wg.shape[2]
+    _, ok = _extract_taps(keys, q, sb, min(keys.shape[0], nf), kx=kx,
+                          span=span, bs=bs)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (keys, q, feats, wg, sb)) + 4 * V * TOP
+    return bound(nbytes, 2 * int(ok.sum()) * TCP * TOP)
 
 
 def extract_cuda(keys, q, feats, wg, sb, *, kx, span, bs, variant):
@@ -167,7 +187,7 @@ def run_case(name, V, TCP, TOP, span, G, kx=3, bs=128, iters=10):
     # counted its one-hot extraction dots, which this kernel does not run
     fl = 2 * V * G * kx * TCP * TOP
     res = dict(name=name, V=V, TCP=TCP, TOP=TOP, span=span, G=G,
-               plain_ms=plain_ms, variants={})
+               plain_ms=plain_ms, variants={}, **extract_bound(*args, **geo))
     for v in VARIANTS:
         err, scale = max_err(extract_cuda(*args, **geo, variant=v), ref)
         _check_tol(f"{name} {LABELS[v]}", err, scale)
@@ -246,7 +266,10 @@ def run_production(name, V, C_in, C_out, T, span, G, kx=3, bs=128, seed=0,
         _check_tol(f"{name} {label}", err, scale)
         ms = cuda_ms(run, iters)
         plain_ms = cuda_ms(plain, 1)
-        res[key] = dict(ms=ms, plain_ms=plain_ms, err=err)
+        fw = SC._prepare(feats, [w], part, p, T)
+        work = SC.span_conv_work(keys, *fw, coords, valid, p)
+        res[key] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                        bound_ms=work["bound_ms"], bound_by=work["bound_by"])
         print(f"  {label:28s} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
               f"max abs err {err:.3g}", flush=True)
     return res

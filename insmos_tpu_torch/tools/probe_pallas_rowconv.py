@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import setup_device
-from ..kernels import KernelEntry
+from ..kernels import KernelEntry, bound
 from ..sparse import span_conv as SC
 from . import cuda_ms, max_err
 from . import micro_kernels as MK
@@ -169,7 +169,11 @@ def run_case(name, R, X, density, shifts, x_off=X_OFF, seed=0, iters=10,
     feats, w = feats.to(torch.bfloat16), w.to(torch.bfloat16)
     args = (xs, feats, w, shifts, x_off)
     before = KERNEL.launches["rowconv"]
-    err, scale = max_err(rowconv_cuda(*args), rowconv_plain(*args))
+    got = rowconv_cuda(*args)
+    err, scale = max_err(got, rowconv_plain(*args))
+    # xs, feats and weights read once, the float32 output written once
+    nbytes = sum(t.numel() * t.element_size() for t in (xs, feats, w, got))
+    del got
     if err > TOL * scale:
         raise AssertionError(f"T11 {name}: kernel vs plain max abs err "
                              f"{err:.3g} > {TOL} x {scale:.3g}")
@@ -182,7 +186,8 @@ def run_case(name, R, X, density, shifts, x_off=X_OFF, seed=0, iters=10,
                ms=ms, plain_ms=plain_ms, max_abs_err=err, scale=scale,
                launches=KERNEL.launches["rowconv"] - before, unit="TF/s",
                rate=fl / ms / 1e9, plain_rate=fl / plain_ms / 1e9,
-               matches=matches, valid=int((xs < SENT).sum()))
+               matches=matches, valid=int((xs < SENT).sum()),
+               library_ms=None, **bound(nbytes, fl))
     print(f"T11 {res['name']:40s} {ms:9.4f} ms {res['rate']:7.3f} TF/s  "
           f"plain {plain_ms:9.3f} ms {res['plain_rate']:7.3f} TF/s  "
           f"{matches} matches of {res['valid']} centers, max abs err "

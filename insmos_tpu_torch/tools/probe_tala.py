@@ -17,6 +17,7 @@ the first line of the output.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import setup_device
 from . import micro_kernels as MK
@@ -39,12 +40,14 @@ def main(iters=10):
     MK.check_range(idx, T)
     table, idx = MK.to_device(table, idx)
     rows = idx.shape[0]
+    lane = MK.lane_index(idx, rows, 0)
     return [MK.run_exact("T9", f"take_along_axis ({rows}, 128) from "
                          f"({T}, 128)",
                          lambda: MK.lane_gather_cuda(table, idx, rows, 0),
                          lambda: MK.lane_gather_plain(table, idx, rows, 0),
                          "lane", MK.gather_gb(idx.numel(), idx.numel()),
-                         "GB/s", iters)]
+                         "GB/s", (table, idx),
+                         lambda: torch.gather(table, 0, lane), iters)]
 
 
 def cli(argv=None):

@@ -174,11 +174,12 @@ def _flatten(tree, prefix, out):
     return out
 
 
-def load_jax_params(params_np, state_np, device) -> dict:
+def load_jax_params(params_np, state_np, device="cuda") -> dict:
     """(params, state) trees of numpy arrays -> state dict of InsMOSModel
-    on ``device``. BEV conv weights move from HWIO to torch's layouts (the
-    transposed conv also flips its kernel: the reference's conv_transpose
-    correlates with the spatially flipped kernel)."""
+    on ``device`` (the card unless the caller names the CPU). BEV conv
+    weights move from HWIO to torch's layouts (the transposed conv also
+    flips its kernel: the reference's conv_transpose correlates with the
+    spatially flipped kernel)."""
     flat = _flatten(params_np, "", {})
     _flatten(state_np, "", flat)
     sd = {}
@@ -192,8 +193,9 @@ def load_jax_params(params_np, state_np, device) -> dict:
     return sd
 
 
-def make_model(cfg, params_np, state_np, device):
-    """InsMOSModel on ``device`` holding the given parameter trees."""
+def make_model(cfg, params_np, state_np, device="cuda"):
+    """InsMOSModel on ``device`` (the card unless the caller names the
+    CPU) holding the given parameter trees."""
     from ..nn.model import InsMOSModel
 
     model = InsMOSModel(cfg).to(device)

@@ -11,6 +11,8 @@ sets: two candidates whose scores differ by ~1e-7 may swap places in the
 score order, which changes the order of the kept list but not its
 contents."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 
 from insmos_tpu.nn import InsMOSModel as JaxModel
 from insmos_tpu.pipeline import InferencePipeline as JaxPipeline
+from insmos_tpu_torch import config as port_config_mod
 from insmos_tpu_torch.pipeline import InferencePipeline
 from insmos_tpu_torch.utils.params import init_params, make_model
 
@@ -26,11 +29,23 @@ from torch_port_common import hdl64_crop_stream, tiny_config
 N_SCANS = 4
 
 
+def port_config(cfg):
+    """The port's Config holding the same values as the JAX package's."""
+    def build(obj):
+        cls = getattr(port_config_mod, type(obj).__name__)
+        return cls(**{f.name: (build(getattr(obj, f.name))
+                               if dataclasses.is_dataclass(getattr(obj, f.name))
+                               else getattr(obj, f.name))
+                      for f in dataclasses.fields(obj)})
+    return build(cfg)
+
+
 def _run(engine):
     cfg = tiny_config(window=4, engine=engine)
-    params, state = init_params(cfg, np.random.default_rng(0))
+    pcfg = port_config(cfg)
+    params, state = init_params(pcfg, np.random.default_rng(0))
     scans, tfs, poses = hdl64_crop_stream(N_SCANS)
-    port = InferencePipeline(cfg, make_model(cfg, params, state, "cpu"),
+    port = InferencePipeline(pcfg, make_model(pcfg, params, state, "cpu"),
                              "cpu")
     got = [port.push_scan(s, tf) for s, tf in zip(scans, tfs)]
     ref_pipe = JaxPipeline(cfg, params, state)
@@ -117,7 +132,7 @@ def test_model_forward_matches_jax(window_run):
                    num_boxes=np.int32(0))
     fwd = jax.jit(lambda p, s, x: jm.forward(p, s, x, train=False))
     ref = jax.tree_util.tree_map(np.asarray, fwd(params, state, jsample))
-    model = make_model(cfg, params, state, "cpu")
+    model = make_model(port_config(cfg), params, state, "cpu")
     got = model({k: torch.from_numpy(v) for k, v in sample.items()})
     np.testing.assert_allclose(got["motion_logits"].numpy(),
                                ref["motion_logits"], atol=1e-4, rtol=1e-4)

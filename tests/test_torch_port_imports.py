@@ -1,5 +1,5 @@
-"""The PyTorch port imports no jax, and its parameter init mirrors the JAX
-package's tree exactly."""
+"""The PyTorch port imports no jax and nothing of the JAX package, and its
+parameter init mirrors the JAX package's tree exactly."""
 
 import subprocess
 import sys
@@ -12,6 +12,7 @@ import torch
 
 from insmos_tpu.config import Config
 from insmos_tpu.nn import InsMOSModel
+from insmos_tpu_torch.config import Config as PortConfig
 from insmos_tpu_torch.nn.model import InsMOSModel as TorchModel
 from insmos_tpu_torch.utils.params import init_params, load_jax_params
 
@@ -20,15 +21,15 @@ REPO = Path(__file__).resolve().parents[1]
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["insmos_tpu"] = None  # and so does any of the JAX package
 import insmos_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(insmos_tpu_torch.__path__,
                                                "insmos_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-bad = [m for m in sys.modules if m.split(".")[0] == "jax" and sys.modules[m]]
-bad += [m for m in sys.modules if m.startswith(("insmos_tpu.pipeline",
-        "insmos_tpu.nn", "insmos_tpu.sparse", "insmos_tpu.ops"))]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "insmos_tpu")
+       and sys.modules[m]]
 print(len(names), "modules", bad)
 assert not bad, bad
 """
@@ -48,8 +49,9 @@ def _leaves(tree):
 @pytest.mark.parametrize("cfg_name", ["default", "tiny"])
 def test_init_params_matches_jax_init(cfg_name):
     cfg = Config() if cfg_name == "default" else Config().tiny()
+    pcfg = PortConfig() if cfg_name == "default" else PortConfig().tiny()
     ref_p, ref_s = jax.eval_shape(InsMOSModel(cfg).init, jax.random.PRNGKey(0))
-    p, s = init_params(cfg, np.random.default_rng(0))
+    p, s = init_params(pcfg, np.random.default_rng(0))
     for ref, got in ((ref_p, p), (ref_s, s)):
         assert (jax.tree_util.tree_structure(ref)
                 == jax.tree_util.tree_structure(got))
@@ -59,7 +61,7 @@ def test_init_params_matches_jax_init(cfg_name):
 
 
 def test_load_jax_params_fills_every_module_tensor():
-    cfg = Config().tiny()
+    cfg = PortConfig().tiny()
     p, s = init_params(cfg, np.random.default_rng(1))
     sd = load_jax_params(p, s, "cpu")
     model = TorchModel(cfg)

@@ -132,3 +132,55 @@ def test_kernel_matches_plain(case, dtype, cuda):
     assert err <= 1e-4 * scale, (case[0], err, scale)
     if case[0] == "narrow_overflow":
         assert int(plan.n_overflow) > 0 and plan.gs.shape[1] > 0
+
+
+# Main-path widths at the kernel's own interface: (TC, TO, kx). Every TC,
+# TO and kx of the full-config step appears at least once; the TO = 320
+# cases run two column tiles. Each plan has live coverage slots, n_overflow
+# > 0 and dead blocks; about half of the (k16, n8) weight tiles are zero, as
+# the t-band leaves them.
+# Tolerance 5e-4 x max(1, |plain|): the bf16 products are exact in float32
+# on both sides, summed in another order (per group on the tensor cores,
+# up to 90 k16 steps, then across groups on the CUDA cores).
+WIDE = [(10, 96, 5), (10, 8, 2), (60, 8, 3), (80, 160, 3), (128, 320, 3),
+        (336, 96, 2), (480, 320, 3), (128, 8, 2), (60, 160, 5)]
+
+
+def _wide_case(TC, TO, kx, dev, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    dims, n, cap, bs = (96, 40, 12), 5000, 6144, 128
+    x = _slab(rng, dev, n, dims, 1, 1, cap)
+    valid = x.valid.clone()
+    valid[2 * bs:4 * bs] = False  # two dead output blocks
+    plan = SC.make_span_plan(
+        x.keys, x.coords, valid, (kx, 3, 3), in_dims=dims, span=128,
+        slots=512, gwin=6, pairs=160, bs=bs)
+    feats = torch.from_numpy(rng.normal(size=(cap, TC)).astype(np.float32))
+    w = rng.normal(size=(9, kx * TC, TO)).astype(np.float32) * 0.1
+    Kp = -(-kx * TC // 16) * 16
+    tiles = rng.random((9, Kp // 16, -(-TO // 8))) < 0.5
+    keep = np.repeat(np.repeat(tiles, 16, 1), 8, 2)[:, :kx * TC, :TO]
+    wg = torch.from_numpy(w * keep)
+    return (x.keys, feats.to(dev).to(dtype), wg.to(dev).to(dtype), x.coords,
+            valid, plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", WIDE,
+                         ids=[f"TC{a}_TO{b}_kx{c}" for a, b, c in WIDE])
+def test_kernel_main_path_widths(shape, dtype, cuda):
+    args = _wide_case(*shape, cuda, dtype)
+    plan = args[-1]
+    assert int(plan.n_overflow) > 0 and int((plan.gs[1] >= 0).sum()) > 0
+    before = SC.SPAN_KERNELS.main_launches
+    got = SC.span_conv_core_cuda(*args)
+    torch.cuda.synchronize()
+    assert SC.SPAN_KERNELS.main_launches == before + 1
+    ref = SC.span_conv_core_plain(*args)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    assert err <= 5e-4 * scale, (shape, err, scale)
+    dead = ~args[4][: got.shape[0]]
+    assert not got[dead].any()
