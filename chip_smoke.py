@@ -358,7 +358,8 @@ def phase_probes():
     on the same inputs and raises beyond its tolerance (probe_extract 5e-4,
     span_conv_apply 5e-4, probe_dotshapes 1e-4, x max(1, max|plain|)).
     Returns the ``kernels`` report entries: ms and plain ms are summed over
-    the probe's cases (probe_dotshapes: at one copy per shape)."""
+    the probe's cases (probe_dotshapes: at one copy per shape, with the
+    device time beside the events)."""
     PE.KERNEL.reset_counts()
     ext = PE.main()
     ext_launches = dict(PE.KERNEL.launches)
@@ -403,7 +404,9 @@ def phase_probes():
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
     dot_bound = total_bound(dots)
     for v in PD.VARIANTS:
-        entries.append(dict(
+        # one copy per shape; device_ms and library_device_ms are
+        # torch.profiler's device time per call, beside the events' ms
+        e = dict(
             name=f"probe_dot {v}", route="cuda",
             source="insmos_tpu_torch/csrc/probe_dot.cu",
             replaces="tools/probe_dotshapes.py:41",
@@ -411,9 +414,16 @@ def phase_probes():
             max_abs_err=max(c["err"] for r in dots
                             for c in r["kernel"][v].values()),
             ms=sum(r["kernel"][v][1]["ms"] for r in dots),
+            device_ms=sum(r["kernel"][v][1]["device_ms"] for r in dots),
             plain_ms=sum(r["plain_ms"] for r in dots),
             bound_ms=dot_bound[0], bound_by=dot_bound[1],
-            library_ms=sum(r["library_ms"] for r in dots)))
+            library_ms=sum(r["library_ms"] for r in dots),
+            library_device_ms=sum(r["library_device_ms"] for r in dots))
+        if v == "fma":  # the same call on float32 operands (cuBLAS SGEMM)
+            e["library_f32_ms"] = sum(r["library_f32_ms"] for r in dots)
+            e["library_f32_device_ms"] = sum(r["library_f32_device_ms"]
+                                             for r in dots)
+        entries.append(e)
     print(f"probes: probe_extract A/B/C at {len(ext)} cases, D/E at "
           f"{len(prod)} production cases, probe_dot mma/fma at {len(dots)} "
           f"shapes agree with their plain versions; launches {counts}")

@@ -3,7 +3,8 @@ package's ``tools/`` probes that reach a Pallas kernel), and the timing
 helpers they and ``chip_smoke.py`` share.
 
     python -m insmos_tpu_torch.tools.probe_extract [--production]
-    python -m insmos_tpu_torch.tools.probe_dotshapes
+    python -m insmos_tpu_torch.tools.probe_dotshapes [--sweep]
+    python insmos_tpu_torch/tools/dot_turns.py OLD_ROOT
     python -m insmos_tpu_torch.tools.micro_pallas
     python -m insmos_tpu_torch.tools.micro_pallas2
     python -m insmos_tpu_torch.tools.micro_lanegather
@@ -20,6 +21,8 @@ from __future__ import annotations
 import subprocess
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 
 def card_line() -> str:
@@ -44,6 +47,29 @@ def cuda_ms(fn, reps: int = 3) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def event_device_us(ev) -> float:
+    """Self device µs of one torch.profiler ``key_averages()`` entry."""
+    return float(getattr(ev, "self_device_time_total", None)
+                 or getattr(ev, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device ms per call of ``fn()``: torch.profiler's self device time of
+    every kernel, copy and set the ``reps`` calls ran (after one warm-up
+    call), divided by ``reps``. Unlike ``cuda_ms`` it does not read the
+    host time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(event_device_us(ev) for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 def max_err(got, ref) -> tuple[float, float]:

@@ -35,14 +35,10 @@ from ..data.hdl64 import make_stream
 from ..pipeline import InferencePipeline
 from ..utils.params import init_params, make_model
 from . import card_line
+from . import event_device_us as _device_us
 
 SPAN_KERNELS = ("span_mma_kernel", "span_conv_kernel")
 N_CLEAN = 3
-
-
-def _device_us(ev) -> float:
-    return float(getattr(ev, "self_device_time_total", None)
-                 or getattr(ev, "self_cuda_time_total", 0.0))
 
 
 def _step(pipe, scan, tf):

@@ -6,8 +6,11 @@ not multiples of the kernel's 64-column tile or 32-deep chunk, span 64 <
 bs so out-of-window taps occur) and at the TPU probe's UNet L4 case.
 Tolerance 5e-4 x max(1, max|plain|), the span kernel's: exact float32
 products of bf16 operands summed in another order.
-T12 (probe_dotshapes): both variants at all 12 shapes with one copy, and
-with several copies at one shape. Tolerance 1e-4 x max(1, max|plain|).
+T12 (probe_dotshapes): both variants at all 12 shapes with one copy (its
+reps split over the card), and with the split's edges: one rep, reps not
+divisible by the split, 1, 7 and 132 copies, K and N ending inside a tile.
+Each call launches once and two calls agree bit for bit. Tolerance 1e-4 x
+max(1, max|plain|).
 
 Run on the card with:
     python -m pytest --noconftest -m gpu tests/test_torch_probe_kernels.py
@@ -55,29 +58,48 @@ def test_extract_kernel_matches_plain(case, variant, cuda):
     assert float((got - ref).abs().max()) <= PE.TOL * scale
 
 
+def _check_dot(a, b, reps, variant, copies=1, splits=None):
+    """One call launches once; two calls agree bit for bit; every copy is
+    within TOL of the plain sum."""
+    (M, _), N = a.shape, b.shape[1]
+    before = PD.KERNEL.launches[variant]
+    got = PD.dot_cuda(a, b, reps, variant, copies, splits)
+    torch.cuda.synchronize()
+    assert PD.KERNEL.launches[variant] == before + 1
+    assert torch.equal(got, PD.dot_cuda(a, b, reps, variant, copies, splits))
+    ref = PD.dot_plain(a, b, reps)
+    assert got.shape == (copies, M, N) and got.dtype == torch.float32
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= PD.TOL * scale
+
+
 @pytest.mark.parametrize("shape", PD.SHAPES, ids=[s[0] for s in PD.SHAPES])
 @pytest.mark.parametrize("variant", PD.VARIANTS)
 def test_dot_kernel_matches_plain(shape, variant, cuda):
     _, M, K, N, n_dots = shape
     a, b = (torch.from_numpy(x).to(cuda, torch.bfloat16)
             for x in PD.make_operands(M, K, N))
-    reps = PD.REP * n_dots
-    before = PD.KERNEL.launches[variant]
-    got = PD.dot_cuda(a, b, reps, variant)
-    torch.cuda.synchronize()
-    assert PD.KERNEL.launches[variant] == before + 1
-    ref = PD.dot_plain(a, b, reps)
-    assert got.shape == (1, M, N) and got.dtype == torch.float32
-    scale = max(1.0, float(ref.abs().max()))
-    assert float((got - ref).abs().max()) <= PD.TOL * scale
+    _check_dot(a, b, PD.REP * n_dots, variant)
 
 
+# name, M, K, N, reps, copies, splits (None: dot_splits for this card).
+# K = 96 and 40 end inside a k-tile; N = 64 and 192 inside a 128-wide tile
+COPIES_CASES = [
+    ("k96_copies7", 256, 96, 128, 5, 7, None),
+    ("reps1", 128, 256, 128, 1, 1, None),
+    ("reps7_splits3", 128, 96, 384, 7, 1, 3),
+    ("n64", 128, 96, 64, 13, 1, None),
+    ("n384_copies132", 128, 256, 384, 3, 132, None),
+    ("k40_n192", 128, 40, 192, 9, 1, None),
+    ("m256_n384_reps64", 256, 96, 384, 64, 1, None),
+]
+
+
+@pytest.mark.parametrize("case", COPIES_CASES,
+                         ids=[c[0] for c in COPIES_CASES])
 @pytest.mark.parametrize("variant", PD.VARIANTS)
-def test_dot_kernel_copies_agree(variant, cuda):
+def test_dot_kernel_copies_agree(case, variant, cuda):
+    _, M, K, N, reps, copies, splits = case
     a, b = (torch.from_numpy(x).to(cuda, torch.bfloat16)
-            for x in PD.make_operands(256, 96, 128))
-    got = PD.dot_cuda(a, b, 5, variant, copies=7)
-    ref = PD.dot_plain(a, b, 5)
-    assert got.shape == (7, 256, 128)
-    scale = max(1.0, float(ref.abs().max()))
-    assert float((got - ref).abs().max()) <= PD.TOL * scale
+            for x in PD.make_operands(M, K, N))
+    _check_dot(a, b, reps, variant, copies, splits)

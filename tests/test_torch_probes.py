@@ -139,11 +139,17 @@ def test_span_conv_apply_matches_jax(slots, dtype):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(16, 32, 16, 1), (16, 32, 16, 3),
-                                   (32, 64, 48, 1)],
-                         ids=["16x32x16", "16x32x16_x3", "32x64x48"])
+@pytest.mark.parametrize("shape", [(16, 32, 16, 1, False),
+                                   (16, 32, 16, 3, False),
+                                   (32, 64, 48, 1, False),
+                                   (16, 32, 16, 3, True)],
+                         ids=["16x32x16", "16x32x16_x3", "32x64x48",
+                              "16x32x16_x3_splits"])
 def test_dot_plain_matches_tpu_body(shape):
-    M, K, N, n_dots = shape
+    """With ``split``, the sum is taken as the kernels take it at one copy
+    on a 132-SM card: each split's partial over its reps (132 uneven ranges
+    of the 192), then the partials added in split order."""
+    M, K, N, n_dots, split = shape
     REP = PD.REP
 
     def kern(a_ref, b_ref, o_ref):  # tools/probe_dotshapes.py:28-37
@@ -168,10 +174,53 @@ def test_dot_plain_matches_tpu_body(shape):
     a, b = PD.make_operands(M, K, N)
     ref = np.asarray(run(jnp.asarray(a, jnp.bfloat16),
                          jnp.asarray(b, jnp.bfloat16)))
-    got = PD.dot_plain(torch.from_numpy(a).bfloat16(),
-                       torch.from_numpy(b).bfloat16(), REP * n_dots).numpy()
+    ta, tb = torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16()
+    reps = REP * n_dots
+    if split:
+        S, ranges = PD.dot_splits(M, N, reps, 1, 132)
+        assert S == 132 and reps % S
+        got = torch.zeros((M, N))
+        for r0, r1 in ranges:
+            got += PD.dot_plain(ta, tb, r1 - r0)
+        got = got.numpy()
+    else:
+        got = PD.dot_plain(ta, tb, reps).numpy()
     scale = max(1.0, float(np.abs(ref).max()))
     assert np.abs(got - ref).max() <= 1e-5 * scale
+
+
+# M, N, reps, copies, sms
+SPLIT_CASES = [(128, 128, 64, 1, 132), (128, 128, 192, 1, 132),
+               (128, 384, 64, 1, 132), (512, 512, 64, 1, 132),
+               (128, 128, 64, 132, 132), (128, 128, 64, 7, 132),
+               (128, 128, 1, 1, 132), (256, 1024, 3, 1, 114),
+               (128, 64, 64, 200, 132), (128, 128, 64, 65535, 132),
+               (128, 128, 10**6, 1, 132)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=["x".join(map(str, c)) for c in SPLIT_CASES])
+def test_dot_splits(case):
+    M, N, reps, copies, sms = case
+    S, ranges = PD.dot_splits(M, N, reps, copies, sms)
+    assert len(ranges) == S and 1 <= S <= reps
+    assert copies * S <= PD.MAX_GRID_Z
+    # contiguous, in order, every rep in exactly one split, none empty
+    assert ranges[0][0] == 0 and ranges[-1][1] == reps
+    assert all(r0 < r1 for r0, r1 in ranges)
+    assert all(p[1] == q[0] for p, q in zip(ranges, ranges[1:]))
+    assert sorted(r for r0, r1 in ranges for r in range(r0, r1)) \
+        == list(range(reps))
+    assert max(r1 - r0 for r0, r1 in ranges) \
+        - min(r1 - r0 for r0, r1 in ranges) <= 1
+    blocks = PD.tiles(M, N) * copies
+    if copies >= sms:
+        assert S == 1
+    elif S < min(reps, PD.MAX_GRID_Z // copies):
+        # fills the card in one wave: one more split would not fit
+        assert blocks * S <= sms < blocks * (S + 1)
+    if 2 * blocks <= sms and reps > 1:
+        assert S > 1
 
 
 @pytest.mark.parametrize("variant", PE.VARIANTS)
