@@ -18,7 +18,8 @@ micro_pallas, micro_pallas2, micro_lanegather, micro_lanegather2,
 probe_tala) and the rowconv probe (T11: probe_pallas_rowconv) at the TPU
 probes' full sizes. Any failure raises and ends the run with a non-zero
 exit code; the line before the last lists every kernel with its launches,
-error, time, plain time, bound and one-call PyTorch time, the last line
+error, time (CUDA events; on the probes also torch.profiler's device
+time), plain time, bound and one-call PyTorch time, the last line
 is the device JSON. ``--details PATH`` also writes the per-class kernel
 times, step times, gates and probe readings to PATH as JSON.
 
@@ -42,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from insmos_tpu_torch import kernels, setup_device
+from insmos_tpu_torch import kernels, setup_device, tools
 from insmos_tpu_torch.config import Config
 from insmos_tpu_torch.data.hdl64 import make_stream
 from insmos_tpu_torch.pipeline import InferencePipeline
@@ -357,9 +358,9 @@ def phase_probes():
     Every probe holds each kernel output it times against the plain version
     on the same inputs and raises beyond its tolerance (probe_extract 5e-4,
     span_conv_apply 5e-4, probe_dotshapes 1e-4, x max(1, max|plain|)).
-    Returns the ``kernels`` report entries: ms and plain ms are summed over
-    the probe's cases (probe_dotshapes: at one copy per shape, with the
-    device time beside the events)."""
+    Returns the ``kernels`` report entries: ms, device ms and plain ms are
+    summed over the probe's cases (probe_dotshapes: at one copy per
+    shape)."""
     PE.KERNEL.reset_counts()
     ext = PE.main()
     ext_launches = dict(PE.KERNEL.launches)
@@ -386,6 +387,7 @@ def phase_probes():
             launches=ext_launches[v],
             max_abs_err=max(r["variants"][v]["err"] for r in ext),
             ms=sum(r["variants"][v]["ms"] for r in ext),
+            device_ms=sum(r["variants"][v]["device_ms"] for r in ext),
             plain_ms=sum(r["plain_ms"] for r in ext),
             bound_ms=ext_bound[0], bound_by=ext_bound[1], library_ms=None))
     # D runs the main windows alone (span_conv.py::_kernel), E adds the
@@ -400,6 +402,7 @@ def phase_probes():
             launches=prod_launches[key],
             max_abs_err=max(r[key]["err"] for r in prod),
             ms=sum(r[key]["ms"] for r in prod),
+            device_ms=sum(r[key]["device_ms"] for r in prod),
             plain_ms=sum(r[key]["plain_ms"] for r in prod),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
     dot_bound = total_bound(dots)
@@ -430,6 +433,31 @@ def phase_probes():
     return entries, dict(extract=ext, production=prod, dotshapes=dots)
 
 
+def micro_entries(readings, replaces):
+    """One ``kernels`` entry per TPU kernel of the micro phase: ``replaces``
+    maps each probe tag to its TPU kernel's pallas_call, in report order.
+    ms, device ms, plain ms, launches and the bound are summed over the
+    tag's readings, as are the one-call's events and device ms; a probe
+    without a one-call gives None for both."""
+    entries = []
+    for tag, rep in replaces.items():
+        rs = [r for r in readings if r["tag"] == tag]
+        b_ms, b_by = total_bound(rs)
+        lib = {k: [r[k] for r in rs] for k in ("library_ms",
+                                               "library_device_ms")}
+        entries.append(dict(
+            name=f"{tag} {rs[0]['kernel']}", route="cuda",
+            source=rs[0]["source"], replaces=rep,
+            launches=sum(r["launches"] for r in rs),
+            max_abs_err=max(r["max_abs_err"] for r in rs),
+            ms=sum(r["ms"] for r in rs),
+            device_ms=sum(r["device_ms"] for r in rs),
+            plain_ms=sum(r["plain_ms"] for r in rs),
+            bound_ms=b_ms, bound_by=b_by,
+            **{k: None if None in v else sum(v) for k, v in lib.items()}))
+    return entries
+
+
 def phase_micro():
     """The micro probes T1-T9 (row gather, lower bound, per-lane gather)
     and the rowconv probe T11 through their entry points at the TPU probes'
@@ -437,26 +465,13 @@ def phase_micro():
     after. Each probe holds every kernel output it times against its plain
     version (gathers and search bit for bit, rowconv within 1e-4 x max(1,
     max|plain|)) and raises otherwise. Returns one ``kernels`` entry per TPU
-    kernel (ms and plain ms summed over its cases) and the readings."""
+    kernel (``micro_entries``) and the readings."""
     MK.KERNEL.reset_counts()
     RC.KERNEL.reset_counts()
     readings = [r for mod in MICRO_PROBES for r in mod.main()]
     counts = {**MK.KERNEL.launches, **RC.KERNEL.launches}
-    entries = []
-    for mod in MICRO_PROBES:
-        for tag, rep in mod.REPLACES.items():
-            rs = [r for r in readings if r["tag"] == tag]
-            b_ms, b_by = total_bound(rs)
-            libs = [r["library_ms"] for r in rs]
-            entries.append(dict(
-                name=f"{tag} {rs[0]['kernel']}", route="cuda",
-                source=rs[0]["source"], replaces=rep,
-                launches=sum(r["launches"] for r in rs),
-                max_abs_err=max(r["max_abs_err"] for r in rs),
-                ms=sum(r["ms"] for r in rs),
-                plain_ms=sum(r["plain_ms"] for r in rs),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=None if None in libs else sum(libs)))
+    entries = micro_entries(readings, {tag: rep for mod in MICRO_PROBES
+                                       for tag, rep in mod.REPLACES.items()})
     if (not all(counts.values()) or not all(e["launches"] for e in entries)
             or sum(e["launches"] for e in entries) != sum(counts.values())):
         raise AssertionError(f"micro kernel launch counters {counts}, per "
@@ -493,6 +508,10 @@ def main() -> int:
           f"on {card}; all steps ms {[round(t, 1) for t in step_ms]}")
     probe_entries, probes = phase_probes()
     micro_entries, probes["micro"] = phase_micro()
+    print(f"device_ms profiler sessions: {tools.SESSIONS['whole']} whole, "
+          f"{tools.SESSIONS['short']} short and run again, "
+          f"{tools.SESSIONS['events']} calls timed by CUDA events instead")
+    probes["profiler_sessions"] = dict(tools.SESSIONS)
     report = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "insmos_tpu_torch/csrc/span_conv.cu", "replaces": rep,

@@ -4,7 +4,7 @@ helpers they and ``chip_smoke.py`` share.
 
     python -m insmos_tpu_torch.tools.probe_extract [--production]
     python -m insmos_tpu_torch.tools.probe_dotshapes [--sweep]
-    python insmos_tpu_torch/tools/dot_turns.py OLD_ROOT
+    python -m insmos_tpu_torch.tools.turns dot|gather OLD_ROOT
     python -m insmos_tpu_torch.tools.micro_pallas
     python -m insmos_tpu_torch.tools.micro_pallas2
     python -m insmos_tpu_torch.tools.micro_lanegather
@@ -19,6 +19,7 @@ Every time they print is a reading of the card named on their first line.
 from __future__ import annotations
 
 import subprocess
+import sys
 
 import torch
 from torch.autograd import DeviceType
@@ -55,21 +56,42 @@ def event_device_us(ev) -> float:
                  or getattr(ev, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, reps: int = 10) -> float:
+# device_ms's profiling sessions in this process: whole, short (run again),
+# and calls timed by CUDA events after every session came back short
+SESSIONS = {"whole": 0, "short": 0, "events": 0}
+
+
+def device_ms(fn, reps: int = 10, tries: int = 4) -> float:
     """Device ms per call of ``fn()``: torch.profiler's self device time of
     every kernel, copy and set the ``reps`` calls ran (after one warm-up
     call), divided by ``reps``. Unlike ``cuda_ms`` it does not read the
-    host time between launches."""
+    host time between launches.
+
+    ``fn`` must run at least one device activity a call. A profiling
+    session that records fewer than ``reps`` of them (now and then CUPTI
+    hands back none) is run again, up to ``tries`` sessions; if none of
+    them is whole, the time comes from CUDA events (``cuda_ms``) and a
+    note says so on stderr. ``SESSIONS`` counts each outcome."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(event_device_us(ev) for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+        us = sum(event_device_us(ev) for ev in evs)
+        if sum(ev.count for ev in evs) >= reps and us > 0:
+            SESSIONS["whole"] += 1
+            return us / 1e3 / reps
+        SESSIONS["short"] += 1
+    SESSIONS["events"] += 1
+    print(f"device_ms: {tries} profiling sessions recorded fewer than "
+          f"{reps} device activities; timed by CUDA events instead",
+          file=sys.stderr, flush=True)
+    return cuda_ms(fn, reps)
 
 
 def max_err(got, ref) -> tuple[float, float]:

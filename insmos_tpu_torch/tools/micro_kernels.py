@@ -9,7 +9,9 @@ each beside its plain PyTorch version, and the runner the probes share.
 ``*_plain`` is the plain version (index_select, searchsorted, gather) that
 the CPU tests hold against the TPU probes' bodies. ``*_cuda`` launches the
 kernel once on the current stream; it takes CUDA tensors only, of 4-byte
-elements (float32 or int32, copied bit for bit) and int32 indices.
+elements (float32 or int32, copied bit for bit) and int32 indices. The
+``rows`` and ``lane`` kernels use 32-bit offsets: their wrappers raise
+ValueError for a table or output of more than 2^30 elements.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from ..kernels import KernelEntry, bound
 from ..sparse import span_conv as SC
-from . import card_line, cuda_ms, max_err
+from . import card_line, cuda_ms, device_ms, max_err
 
 DEVICE = torch.device("cuda")
 VARIANTS = ("rows", "bsearch", "lane")
@@ -30,6 +32,8 @@ NAMES = {"rows": "gather_rows", "bsearch": "lower_bound",
          "lane": "lane_gather"}
 SOURCE = "insmos_tpu_torch/csrc/micro_gather.cu"
 ELEM_TYPES = (torch.float32, torch.int32)
+
+MAX_ELEMS = 2**30  # rows and lane: elements of each array (32-bit offsets)
 
 _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # src, idx, out; n, src_rows; width, S; stride; variant; stream
@@ -71,6 +75,12 @@ def _check_elems(t, name, shape, dev):
     SC._check(t, name, t.dtype, shape, dev)
 
 
+def _check_size(*tensors):
+    if any(t.numel() > MAX_ELEMS for t in tensors):
+        raise ValueError(f"arrays of more than 2^30 elements: "
+                         f"{[tuple(t.shape) for t in tensors]}")
+
+
 def _launch(variant, src, idx, out, n, src_rows, width, S=1, stride=0):
     KERNEL(variant, src.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
            src_rows, width, S, stride, VARIANTS.index(variant),
@@ -79,7 +89,8 @@ def _launch(variant, src, idx, out, n, src_rows, width, S=1, stride=0):
 
 def gather_rows_cuda(table, idx):
     """The ``rows`` kernel (same contract as gather_rows_plain): table (T,)
-    or (T, width), idx (Q,) int32 in [0, T)."""
+    or (T, width), idx (Q,) int32 in [0, T); table and output of at most
+    2^30 elements each."""
     _need_cuda("gather_rows_cuda", table)
     dev = table.device
     if table.dim() not in (1, 2) or table.shape[0] == 0:
@@ -89,6 +100,7 @@ def gather_rows_cuda(table, idx):
     SC._check(idx, "idx", torch.int32, (idx.numel(),), dev)
     out = torch.empty((idx.numel(),) + table.shape[1:], dtype=table.dtype,
                       device=dev)
+    _check_size(table, out)
     width = table[0].numel()
     if out.numel():
         _launch("rows", table, idx, out, idx.numel(), table.shape[0], width)
@@ -115,7 +127,7 @@ def lane_gather_cuda(op, idx, S, stride):
     """The ``lane`` kernel (same contract as lane_gather_plain): op
     (op_rows, L), idx (rows, L) int32 with values in [0, stride), or in
     [0, op_rows) when stride is 0; windows of S rows of idx, window b at op
-    row b * stride."""
+    row b * stride; op and output of at most 2^30 elements each."""
     _need_cuda("lane_gather_cuda", op)
     dev = op.device
     if op.dim() != 2 or idx.dim() != 2 or op.shape[0] == 0:
@@ -128,6 +140,7 @@ def lane_gather_cuda(op, idx, S, stride):
         raise ValueError(f"S={S} stride={stride}: the windows of {rows} rows "
                          f"must lie in op's {op.shape[0]} rows")
     out = torch.empty((rows, L), dtype=op.dtype, device=dev)
+    _check_size(op, out)
     if out.numel():
         _launch("lane", op, idx, out, rows, op.shape[0], L, S, stride)
     return out
@@ -149,10 +162,12 @@ def run_exact(tag, name, kernel, plain, variant, amount, unit, inputs,
               library, iters=10):
     """``kernel()`` (one launch of ``variant``) against ``plain()`` bit for
     bit, then both timed with CUDA events, and ``library()``, one PyTorch
-    call that computes the same function, beside them. ``amount`` is the
-    work of one call in GB moved or in millions of queries; ``unit`` names
-    its rate. The bound counts the bytes of ``inputs`` read once and of the
-    output written once. Returns the reading."""
+    call that computes the same function, beside them; the kernel and
+    ``library()`` also by device time (``device_ms``, torch.profiler), which
+    does not read the host time between launches. ``amount`` is the work of
+    one call in GB moved or in millions of queries; ``unit`` names its rate
+    (from device time). The bound counts the bytes of ``inputs`` read once
+    and of the output written once. Returns the reading."""
     before = KERNEL.launches[variant]
     got, ref = kernel(), plain()
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, got))
@@ -165,17 +180,20 @@ def run_exact(tag, name, kernel, plain, variant, amount, unit, inputs,
     err = max_err(got, ref)[0]
     del got, ref
     ms = cuda_ms(kernel, iters)
+    dev_ms = device_ms(kernel, iters)
     plain_ms = cuda_ms(plain, iters)
     library_ms = cuda_ms(library, iters)
+    library_dev_ms = device_ms(library, iters)
     res = dict(tag=tag, name=name, kernel=NAMES[variant], source=SOURCE,
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_device_ms=library_dev_ms,
                max_abs_err=err, launches=KERNEL.launches[variant] - before,
-               unit=unit, rate=amount / ms * 1e3,
+               unit=unit, rate=amount / dev_ms * 1e3,
                plain_rate=amount / plain_ms * 1e3, **bound(nbytes))
-    print(f"{tag} {name:44s} {ms:9.4f} ms {res['rate']:9.1f} {unit}  plain "
-          f"{plain_ms:9.4f} ms {res['plain_rate']:9.1f} {unit}  library "
-          f"{library_ms:9.4f} ms  bound {res['bound_ms']:9.4f} ms",
-          flush=True)
+    print(f"{tag} {name:44s} {ms:9.4f} ms, device {dev_ms:9.4f} ms "
+          f"{res['rate']:9.1f} {unit}  plain {plain_ms:9.4f} ms  library "
+          f"{library_ms:9.4f} ms, device {library_dev_ms:9.4f} ms  bound "
+          f"{res['bound_ms']:9.4f} ms", flush=True)
     return res
 
 

@@ -10,8 +10,9 @@ both are timed; it prints GB/s moved.
 
     python -m insmos_tpu_torch.tools.micro_lanegather2
 
-Needs one CUDA device. Times are CUDA-event readings of the card named on
-the first line of the output.
+Needs one CUDA device. Times are readings of the card named on the first
+line of the output: CUDA events and torch.profiler's device time per
+call.
 """
 
 from __future__ import annotations

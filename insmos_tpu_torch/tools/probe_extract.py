@@ -17,8 +17,9 @@ widths, D without and E with the plan's coverage slots, against
 
     python -m insmos_tpu_torch.tools.probe_extract [--production]
 
-Needs one CUDA device. Times are CUDA-event readings of the card named on
-the first line of the output.
+Needs one CUDA device. Times are readings of the card named on the first
+line of the output: CUDA events and torch.profiler's device time per
+call.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from .. import setup_device
 from ..kernels import KernelEntry, bound
 from ..sparse import span_conv as SC
-from . import card_line, cuda_ms, max_err
+from . import card_line, cuda_ms, device_ms, max_err
 
 DEVICE = torch.device("cuda")
 VARIANTS = ("A", "B", "C")
@@ -191,10 +192,16 @@ def run_case(name, V, TCP, TOP, span, G, kx=3, bs=128, iters=10):
     for v in VARIANTS:
         err, scale = max_err(extract_cuda(*args, **geo, variant=v), ref)
         _check_tol(f"{name} {LABELS[v]}", err, scale)
-        ms = cuda_ms(lambda: extract_cuda(*args, **geo, variant=v), iters)
-        res["variants"][v] = dict(ms=ms, tflops=fl / ms / 1e9, err=err)
-        print(f"  {LABELS[v]:28s} {ms:9.3f} ms  {fl / ms / 1e9:7.2f} TF/s "
-              f"fold  max abs err {err:.3g}", flush=True)
+
+        def fn():
+            return extract_cuda(*args, **geo, variant=v)
+
+        ms, dev_ms = cuda_ms(fn, iters), device_ms(fn, iters)
+        res["variants"][v] = dict(ms=ms, device_ms=dev_ms,
+                                  tflops=fl / dev_ms / 1e9, err=err)
+        print(f"  {LABELS[v]:28s} {ms:9.3f} ms, device {dev_ms:9.3f} ms  "
+              f"{fl / dev_ms / 1e9:7.2f} TF/s fold  max abs err {err:.3g}",
+              flush=True)
     print(f"  {'plain':28s} {plain_ms:9.3f} ms  "
           f"{fl / plain_ms / 1e9:7.2f} TF/s fold", flush=True)
     return res
@@ -264,14 +271,14 @@ def run_production(name, V, C_in, C_out, T, span, G, kx=3, bs=128, seed=0,
 
         err, scale = max_err(run(), plain())
         _check_tol(f"{name} {label}", err, scale)
-        ms = cuda_ms(run, iters)
+        ms, dev_ms = cuda_ms(run, iters), device_ms(run, iters)
         plain_ms = cuda_ms(plain, 1)
         fw = SC._prepare(feats, [w], part, p, T)
         work = SC.span_conv_work(keys, *fw, coords, valid, p)
-        res[key] = dict(ms=ms, plain_ms=plain_ms, err=err,
+        res[key] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, err=err,
                         bound_ms=work["bound_ms"], bound_by=work["bound_by"])
-        print(f"  {label:28s} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
-              f"max abs err {err:.3g}", flush=True)
+        print(f"  {label:28s} {ms:9.3f} ms, device {dev_ms:9.3f} ms  plain "
+              f"{plain_ms:9.3f} ms  max abs err {err:.3g}", flush=True)
     return res
 
 

@@ -18,8 +18,9 @@ max|plain|), then both are timed; it prints useful TF/s,
 
     python -m insmos_tpu_torch.tools.probe_pallas_rowconv
 
-Needs one CUDA device. Times are CUDA-event readings of the card named on
-the first line of the output.
+Needs one CUDA device. Times are readings of the card named on the first
+line of the output: CUDA events and torch.profiler's device time per
+call.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from .. import setup_device
 from ..kernels import KernelEntry, bound
 from ..sparse import span_conv as SC
-from . import cuda_ms, max_err
+from . import cuda_ms, device_ms, max_err
 from . import micro_kernels as MK
 
 SENT = 2**30
@@ -179,16 +180,19 @@ def run_case(name, R, X, density, shifts, x_off=X_OFF, seed=0, iters=10,
                              f"{err:.3g} > {TOL} x {scale:.3g}")
     matches = count_matches(xs, shifts, x_off)
     ms = cuda_ms(lambda: rowconv_cuda(*args), iters)
+    dev_ms = device_ms(lambda: rowconv_cuda(*args), iters)
     plain_ms = cuda_ms(lambda: rowconv_plain(*args), plain_iters)
     fl = 2 * matches * C * COUT
     res = dict(tag="T11", name=f"rowconv {name} R={R} G={len(shifts)}",
                kernel="rowconv", source="insmos_tpu_torch/csrc/rowconv.cu",
-               ms=ms, plain_ms=plain_ms, max_abs_err=err, scale=scale,
-               launches=KERNEL.launches["rowconv"] - before, unit="TF/s",
-               rate=fl / ms / 1e9, plain_rate=fl / plain_ms / 1e9,
-               matches=matches, valid=int((xs < SENT).sum()),
-               library_ms=None, **bound(nbytes, fl))
-    print(f"T11 {res['name']:40s} {ms:9.4f} ms {res['rate']:7.3f} TF/s  "
+               ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=err,
+               scale=scale, launches=KERNEL.launches["rowconv"] - before,
+               unit="TF/s", rate=fl / dev_ms / 1e9,
+               plain_rate=fl / plain_ms / 1e9, matches=matches,
+               valid=int((xs < SENT).sum()), library_ms=None,
+               library_device_ms=None, **bound(nbytes, fl))
+    print(f"T11 {res['name']:40s} {ms:9.4f} ms, device {dev_ms:9.4f} ms "
+          f"{res['rate']:7.3f} TF/s  "
           f"plain {plain_ms:9.3f} ms {res['plain_rate']:7.3f} TF/s  "
           f"{matches} matches of {res['valid']} centers, max abs err "
           f"{err:.3g}", flush=True)

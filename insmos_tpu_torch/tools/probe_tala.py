@@ -10,8 +10,9 @@ are timed (a launch-bound size: 4 KB of output).
 
     python -m insmos_tpu_torch.tools.probe_tala
 
-Needs one CUDA device. Times are CUDA-event readings of the card named on
-the first line of the output.
+Needs one CUDA device. Times are readings of the card named on the first
+line of the output: CUDA events and torch.profiler's device time per
+call.
 """
 
 from __future__ import annotations

@@ -1,16 +1,20 @@
 """The micro-probe kernels of csrc/micro_gather.cu and csrc/rowconv.cu
 against their plain PyTorch versions (needs the card).
 
-gather_rows at widths 1, 3, 8 and 128 (16-, 8- and 4-byte pieces, and a
-table that is only 4-byte aligned), lower_bound at 1 to 262,145 keys (the
-whole key array in shared memory, or a sample of it and a bracket of 8 or
-9 keys from global memory; keys with repeats; the band keys[0] < q <=
-keys[1]), lane_gather at S from 8 to 384 with staged windows
-and windows read from L2, rows that are not a multiple of the block, lanes
-that are not a multiple of 32: all must match exactly. rowconv on the TPU
-probe's small case and on levels whose shifts reach past both ends, within
-1e-4 x max(1, max|plain|) (the same exact float32 products of bf16
-operands, summed in another order).
+gather_rows at widths 1, 3, 8 and 128 (16-, 8- and 4-byte pieces, and
+tables that are only 4-byte aligned at widths 2, 4, 8 and 128; width 1
+with a query count that is not a multiple of 4, a misaligned table or
+index), lower_bound at 1 to 262,145
+keys (the whole key array in shared memory, or a sample of it and a bracket
+of 8 or 9 keys from global memory; keys with repeats; the band keys[0] < q
+<= keys[1]), lane_gather at S from 8 to 384 with staged windows and
+windows read from L2, rows that are not a multiple of the block, lanes
+that are not a multiple of 32, staged windows split over many blocks,
+T5's full case from L2, lanes not a multiple of 4, op or idx only 4-byte
+aligned: all must match exactly. rowconv on the TPU probe's small case
+and on levels whose shifts reach past both ends, within 1e-4 x max(1,
+max|plain|) (the same exact float32 products of bf16 operands, summed in
+another order).
 
 Run on the card with:
     python -m pytest --noconftest -m gpu tests/test_torch_micro_kernels.py
@@ -61,12 +65,38 @@ def _table(rng, T, width, dtype, dev, misaligned=False):
 @pytest.mark.parametrize("dtype", [np.float32, np.int32], ids=["f32", "i32"])
 @pytest.mark.parametrize("width,Q,misaligned", [
     (None, 1000, False), (1, 4097, False), (3, 1000, False),
-    (8, 4097, False), (128, 1000, False), (4, 777, True), (2, 999, True)],
-    ids=["1d", "w1", "w3", "w8", "w128", "w4_misaligned", "w2_misaligned"])
+    (8, 4097, False), (128, 1000, False), (4, 777, True), (2, 999, True),
+    (8, 1000, True), (128, 300, True)],
+    ids=["1d", "w1", "w3", "w8", "w128", "w4_misaligned", "w2_misaligned",
+         "w8_misaligned", "w128_misaligned"])
 def test_gather_rows_matches_plain(width, Q, misaligned, dtype, cuda):
     rng = np.random.default_rng(Q)
     table = _table(rng, 513, width, dtype, cuda, misaligned)
     idx = torch.from_numpy(rng.integers(0, 513, Q).astype(np.int32)).to(cuda)
+    _exact(lambda: MK.gather_rows_cuda(table, idx),
+           lambda: MK.gather_rows_plain(table, idx), "rows")
+
+
+def _misaligned(t):
+    """A copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("Q", [4096, 4097, 4098, 4099, 3])
+@pytest.mark.parametrize("where", ["table", "idx"])
+def test_gather_rows_w1_misaligned_matches_plain(Q, where, cuda):
+    rng = np.random.default_rng(Q)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31, 70_001)
+                             .astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 70_001, Q).astype(np.int32)
+                           ).to(cuda)
+    if where == "table":
+        table = _misaligned(table)
+    else:
+        idx = _misaligned(idx)
     _exact(lambda: MK.gather_rows_cuda(table, idx),
            lambda: MK.gather_rows_plain(table, idx), "rows")
 
@@ -117,6 +147,44 @@ def test_lane_gather_matches_plain(case, dtype, cuda):
                           .astype(dtype)).to(cuda)
     idx = torch.from_numpy(rng.integers(0, span, (rows, L))
                            .astype(np.int32)).to(cuda)
+    _exact(lambda: MK.lane_gather_cuda(op, idx, S, stride),
+           lambda: MK.lane_gather_plain(op, idx, S, stride), "lane")
+
+
+# rows, L, S, stride, op_rows (None: (rows / S) * stride), which array is
+# only 4-byte aligned
+LANE_ALIGN_CASES = [
+    (384, 128, 384, 0, 384, None),      # one staged window, 64 chunks
+    (257, 96, 384, 0, 384, None),       # a partial window
+    (70 * 256 - 50, 128, 256, 256, None, None),  # 2 passes a block
+    (5 * 64 + 7, 30, 64, 64, None, None),   # L % 4 != 0
+    (3 * 200, 64, 200, 250, None, "op"),    # stride > S
+    (3 * 200, 64, 200, 200, None, "idx"),
+    (8192, 128, 8192, 0, 8192, None),   # T5, from L2
+    (8192, 128, 8192, 0, 8192, "op"),
+    (1003, 36, 500, 600, None, None),   # windows 600 rows apart, from L2
+    (1003, 36, 500, 600, None, "idx"),
+    (777, 6, 100, 0, 20_000, None),     # L % 4 != 0, from L2
+    (100, 128, 100, 0, 385, None),      # the smallest span from L2
+]
+
+
+@pytest.mark.parametrize("case", LANE_ALIGN_CASES,
+                         ids=[f"r{c[0]}_L{c[1]}_S{c[2]}_st{c[3]}"
+                              f"{'_' + c[5] if c[5] else ''}"
+                              for c in LANE_ALIGN_CASES])
+def test_lane_gather_paths_match_plain(case, cuda):
+    rows, L, S, stride, op_rows, skew = case
+    op_rows = op_rows or -(-rows // S) * stride
+    rng = np.random.default_rng(rows + L)
+    op = torch.from_numpy(rng.integers(-2**31, 2**31, (op_rows, L))
+                          .astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, stride or op_rows, (rows, L))
+                           .astype(np.int32)).to(cuda)
+    if skew == "op":
+        op = _misaligned(op)
+    elif skew == "idx":
+        idx = _misaligned(idx)
     _exact(lambda: MK.lane_gather_cuda(op, idx, S, stride),
            lambda: MK.lane_gather_plain(op, idx, S, stride), "lane")
 
