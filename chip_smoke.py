@@ -389,7 +389,10 @@ def phase_probes():
             ms=sum(r["variants"][v]["ms"] for r in ext),
             device_ms=sum(r["variants"][v]["device_ms"] for r in ext),
             plain_ms=sum(r["plain_ms"] for r in ext),
-            bound_ms=ext_bound[0], bound_by=ext_bound[1], library_ms=None))
+            bound_ms=ext_bound[0], bound_by=ext_bound[1],
+            # one torch.matmul of the taps gathered beforehand
+            library_ms=sum(r["library_ms"] for r in ext),
+            library_device_ms=sum(r["library_device_ms"] for r in ext)))
     # D runs the main windows alone (span_conv.py::_kernel), E adds the
     # coverage slots (::_gw_kernel)
     for key, what, rep in (("D", "no slots", "1352"),

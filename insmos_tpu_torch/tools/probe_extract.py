@@ -7,8 +7,11 @@ advance by 2, so taps d = 0 and 2 hit and d = 1 never does; a tap counts only
 inside the group's window of ``span`` key rows starting at row sb[g, b]*16.
 ``csrc/probe_extract.cu`` runs it in three variants (A: one binary search
 per tap, one fold; B: the same taps, one fold pass per tap; C: one lower
-bound and a forward scan, one fold); ``extract_plain`` is the plain PyTorch
-version that each output is held against.
+bound and a forward scan, one fold), each a bf16 fold on the tensor cores;
+``extract_plain`` is the plain PyTorch version that each output is held
+against. Beside them it times one ``torch.matmul`` of the taps gathered
+beforehand (``extract_gathered``) by the stacked weights: a PyTorch rate on
+the same fold FLOPs, which the port never calls.
 
 ``--production``: the port's span plan and ``span_conv_apply`` (the
 production kernel, ``csrc/span_conv.cu``) on synthetic site sets of the same
@@ -73,7 +76,7 @@ def make_case(V, TCP, TOP, span, G, kx, bs, seed=0):
     (feats and wg before their bf16 cast); keys is its padded key array,
     of which the TPU's keys2 holds row r as keys[r*16 : r*16 + span]."""
     rng = np.random.default_rng(seed)
-    NB = V // bs
+    NB = -(-V // bs)
     keys = np.arange(V, dtype=np.int32) * 2
     nr16 = V // 16 + 17
     kpad = np.concatenate([keys, np.full(nr16 * 16 + span - V, 2**30,
@@ -128,6 +131,23 @@ def extract_plain(keys, q, feats, wg, sb, *, kx, span, bs):
     return out
 
 
+def extract_gathered(keys, q, feats, wg, sb, *, kx, span, bs):
+    """The one-call yardstick's operands, built outside the timed call:
+    (X (V, G*kx*TCP), every site's row for every group and tap gathered,
+    zero where the tap misses or lies outside the window; the weights
+    stacked (G*kx*TCP, TOP)), in feats' and wg's types. X @ W is
+    extract_plain's output."""
+    V = q.shape[0]
+    G, _, TOP = wg.shape
+    nf, TCP = feats.shape
+    pos, ok = _extract_taps(keys, q, sb, min(keys.shape[0], nf), kx=kx,
+                            span=span, bs=bs)
+    fpad = torch.cat([feats, feats.new_zeros((1, TCP))])
+    rows = torch.where(ok, pos, nf)  # (G, V, kx)
+    X = fpad[rows.permute(1, 0, 2)].reshape(V, G * kx * TCP)
+    return X, wg.reshape(G * kx * TCP, TOP)
+
+
 def extract_bound(keys, q, feats, wg, sb, *, kx, span, bs):
     """kernels.bound of one extraction: 2 * TCP * TOP FLOPs per matched
     (site, group, tap), every input read once and the float32 output
@@ -143,7 +163,8 @@ def extract_bound(keys, q, feats, wg, sb, *, kx, span, bs):
 def extract_cuda(keys, q, feats, wg, sb, *, kx, span, bs, variant):
     """The kernel of csrc/probe_extract.cu (same contract as
     extract_plain), launched once on the current stream. CUDA tensors
-    only."""
+    only; TCP and TOP multiples of 8 (16-byte pieces), feats and wg
+    16-byte aligned."""
     dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"extract_cuda needs CUDA tensors, got {dev}")
@@ -155,12 +176,17 @@ def extract_cuda(keys, q, feats, wg, sb, *, kx, span, bs, variant):
     V = q.shape[0]
     G, _, TOP = wg.shape
     nf, TCP = feats.shape
+    if TCP < 8 or TCP % 8 or TOP % 8:
+        raise ValueError(f"unsupported geometry TCP={TCP} TOP={TOP}: the "
+                         "kernel takes multiples of 8")
     NB = -(-V // bs)
     SC._check(keys, "keys", torch.int32, (keys.shape[0],), dev)
     SC._check(q, "q", torch.int32, (V,), dev)
     SC._check(feats, "feats", torch.bfloat16, (nf, TCP), dev)
     SC._check(wg, "wg", torch.bfloat16, (G, kx * TCP, TOP), dev)
     SC._check(sb, "sb", torch.int32, (G, NB), dev)
+    if feats.data_ptr() % 16 or wg.data_ptr() % 16:
+        raise ValueError("feats and wg must be 16-byte aligned")
     out = torch.empty((V, TOP), dtype=torch.float32, device=dev)
     KERNEL(variant, keys.data_ptr(), q.data_ptr(), feats.data_ptr(),
            wg.data_ptr(), sb.data_ptr(), out.data_ptr(), V,
@@ -177,8 +203,9 @@ def _check_tol(what, err, scale):
 
 
 def run_case(name, V, TCP, TOP, span, G, kx=3, bs=128, iters=10):
-    """Every variant against the plain version on one case, then timed.
-    Returns the times, errors and the fold rate per variant."""
+    """Every variant against the plain version on one case, then timed,
+    and the one-call yardstick timed (``extract_gathered``). Returns the
+    times, errors and the fold rate per variant."""
     print(f"{name}: V={V} TCP={TCP} TOP={TOP} span={span} G={G}", flush=True)
     args = case_tensors(make_case(V, TCP, TOP, span, G, kx, bs), DEVICE)
     geo = dict(kx=kx, span=span, bs=bs)
@@ -204,6 +231,17 @@ def run_case(name, V, TCP, TOP, span, G, kx=3, bs=128, iters=10):
               flush=True)
     print(f"  {'plain':28s} {plain_ms:9.3f} ms  "
           f"{fl / plain_ms / 1e9:7.2f} TF/s fold", flush=True)
+    X, W = extract_gathered(*args, **geo)
+
+    def one_call():
+        return torch.matmul(X, W)
+
+    res.update(library_ms=cuda_ms(one_call, iters),
+               library_device_ms=device_ms(one_call, iters))
+    del X, W
+    print(f"  {'one call (matmul)':28s} {res['library_ms']:9.3f} ms, device "
+          f"{res['library_device_ms']:9.3f} ms  "
+          f"{fl / res['library_device_ms'] / 1e9:7.2f} TF/s fold", flush=True)
     return res
 
 

@@ -42,7 +42,7 @@ X_OFF = (-1, 0, 1)
 # |kernel - plain| <= TOL * max(1, max|plain|): the same exact float32
 # products of bf16 operands, summed in another order
 TOL = 1e-4
-G_MAX, KX_MAX, GK_MAX = 64, 8, 90  # limits of csrc/rowconv.cu
+W_MAX, G_MAX, KX_MAX, GK_MAX = 16, 64, 8, 90  # limits of csrc/rowconv.cu
 REPLACES = {"T11": "tools/probe_pallas_rowconv.py:155"}
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
@@ -135,14 +135,16 @@ def count_matches(xs, shifts, x_off):
 
 def rowconv_cuda(xs, feats, w, shifts, x_off):
     """The kernel of csrc/rowconv.cu (same contract as rowconv_plain, C =
-    COUT = 16, bf16 feats and w), launched once on the current stream.
-    CUDA tensors only."""
+    COUT = 16, at most 16 slots a row, bf16 feats and w), launched once on
+    the current stream. CUDA tensors only."""
     dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"rowconv_cuda needs CUDA tensors, got {dev}")
     G, kx = len(shifts), len(x_off)
-    if xs.dim() != 2 or xs.shape[0] == 0 or xs.shape[1] == 0:
-        raise ValueError(f"xs shape {tuple(xs.shape)}: expected (R, W)")
+    if (xs.dim() != 2 or xs.shape[0] == 0 or xs.shape[1] == 0
+            or xs.shape[1] > W_MAX):
+        raise ValueError(f"xs shape {tuple(xs.shape)}: expected (R, W), "
+                         f"W <= {W_MAX}")
     if not (1 <= G <= G_MAX and 1 <= kx <= KX_MAX and G * kx <= GK_MAX):
         raise ValueError(f"G={G} kx={kx}: the kernel takes G <= {G_MAX}, "
                          f"kx <= {KX_MAX}, G * kx <= {GK_MAX}")

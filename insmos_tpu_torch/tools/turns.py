@@ -3,11 +3,13 @@ copy (OLD, the root of a checkout that holds ``insmos_tpu_torch/``, e.g.
 ``runs/old`` from ``git archive``) against this one, in the order old, new,
 new, old, each in a process of its own.
 
-    python -m insmos_tpu_torch.tools.turns dot OLD [--out PATH]
-    python -m insmos_tpu_torch.tools.turns gather OLD [--out PATH]
+    python -m insmos_tpu_torch.tools.turns dot|gather|extract|rowconv OLD \
+        [--out PATH]
 
 ``dot``: the T12 kernels (``dot_turns.py``); ``gather``: the micro-gather
-kernels of T1, T3-T5 and T7-T9 (``gather_turns.py``). Each process puts its
+kernels of T1, T3-T5 and T7-T9 (``gather_turns.py``); ``extract``: the T10
+kernels (``extract_turns.py``); ``rowconv``: the T11 kernel
+(``rowconv_turns.py``). Each process puts its
 tree first on ``sys.path``, loads this tree's timing helpers
 (``tools/__init__.py``) and the worker script by path, and runs the
 script's ``worker(timing)``, which imports the tree's own kernels, holds
@@ -31,7 +33,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 NEW = HERE.parents[1]
 ORDER = ("old", "new", "new", "old")
-WORKERS = {"dot": HERE / "dot_turns.py", "gather": HERE / "gather_turns.py"}
+WORKERS = {name: HERE / f"{name}_turns.py"
+           for name in ("dot", "gather", "extract", "rowconv")}
 
 
 def _load(name: str, path: Path):

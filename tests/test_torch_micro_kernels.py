@@ -11,10 +11,12 @@ of 8 or 9 keys from global memory; keys with repeats; the band keys[0] < q
 windows read from L2, rows that are not a multiple of the block, lanes
 that are not a multiple of 32, staged windows split over many blocks,
 T5's full case from L2, lanes not a multiple of 4, op or idx only 4-byte
-aligned: all must match exactly. rowconv on the TPU probe's small case
-and on levels whose shifts reach past both ends, within 1e-4 x max(1,
-max|plain|) (the same exact float32 products of bf16 operands, summed in
-another order).
+aligned: all must match exactly. rowconv on the TPU probe's small case,
+on levels whose shifts reach past both ends, with every row empty, with
+all 16 slots of every row valid, with duplicate x in the neighbour rows
+(summed), and with 5 slots a row over an odd number of rows, within 1e-4 x
+max(1, max|plain|) (the same exact float32 products of bf16 operands,
+summed in another order); every empty center's output is exactly 0.
 
 Run on the card with:
     python -m pytest --noconftest -m gpu tests/test_torch_micro_kernels.py
@@ -189,32 +191,47 @@ def test_lane_gather_paths_match_plain(case, cuda):
            lambda: MK.lane_gather_plain(op, idx, S, stride), "lane")
 
 
-def _level(R, X, density, shifts, seed):
-    xs, feats = RC.make_level(R, RC.W, RC.C, X, density, seed)
+def _level(R, W, X, density, shifts, seed):
+    xs, feats = RC.make_level(R, W, RC.C, X, density, seed)
     w = RC.make_weights(len(shifts) * len(RC.X_OFF), RC.C, RC.COUT, seed)
     xs, feats, w = (torch.from_numpy(a).cuda() for a in (xs, feats, w))
     return xs, feats.bfloat16(), w.bfloat16()
 
 
+_PAST_ENDS = [-70, -63, -5, -1, 0, 2, 9, 63, 70]
+
+
+# name, R, W, X, density, shifts
 @pytest.mark.parametrize("case", [
-    ("small", 512, 200, 4.0, RC.CASES[0][4]),
-    ("past_both_ends", 64, 40, 6.0, [-70, -63, -5, -1, 0, 2, 9, 63, 70]),
-    ("27_groups", 20_000, 300, 3.0,
+    ("small", 512, RC.W, 200, 4.0, RC.CASES[0][4]),
+    ("past_both_ends", 64, RC.W, 40, 6.0, _PAST_ENDS),
+    ("27_groups", 20_000, RC.W, 300, 3.0,
      [s + 2000 * dt for dt in (-1, 0, 1) for s in RC.shifts_3x3(100)]),
+    ("all_rows_empty", 300, RC.W, 40, 0.0, RC.CASES[0][4]),
+    ("all_slots_valid", 257, RC.W, 24, 100.0, _PAST_ENDS),
+    ("duplicate_x", 300, RC.W, 6, 8.0, RC.shifts_3x3(16)),
+    ("w5_odd_rows", 33, 5, 20, 3.0, [-3, -1, 0, 1, 40]),
 ], ids=lambda c: c[0])
 def test_rowconv_matches_plain(case, cuda):
-    _, R, X, density, shifts = case
-    xs, feats, w = _level(R, X, density, shifts, seed=R)
+    name, R, W, X, density, shifts = case
+    xs, feats, w = _level(R, W, X, density, shifts, seed=R)
+    valid = xs < RC.SENT
+    if name == "all_rows_empty":
+        assert not bool(valid.any())
+    if name == "all_slots_valid":
+        assert bool(valid.all())
+    if name == "duplicate_x":  # a row holding one x twice
+        assert bool(((xs[:, 1:] == xs[:, :-1]) & valid[:, 1:]).any())
     before = RC.KERNEL.launches["rowconv"]
     got = RC.rowconv_cuda(xs, feats, w, shifts, RC.X_OFF)
     torch.cuda.synchronize()
     assert RC.KERNEL.launches["rowconv"] == before + 1
     ref = RC.rowconv_plain(xs, feats, w, shifts, RC.X_OFF)
-    assert got.shape == ref.shape == (R, RC.W * RC.COUT)
+    assert got.shape == ref.shape == (R, W * RC.COUT)
     scale = max(1.0, float(ref.abs().max()))
     assert float((got - ref).abs().max()) <= RC.TOL * scale
-    assert float(ref.abs().max()) > 0
-    empty = (xs >= RC.SENT).repeat_interleave(RC.COUT, 1)
+    assert (float(ref.abs().max()) > 0) == (name != "all_rows_empty")
+    empty = (~valid).repeat_interleave(RC.COUT, 1)
     assert bool((got[empty] == 0).all())
 
 
@@ -231,3 +248,8 @@ def test_cuda_wrappers_check_inputs(cuda):
         MK.lane_gather_cuda(f, i, 4, 8)  # windows past op's rows
     with pytest.raises(ValueError):
         MK.lower_bound_cuda(i[0, :0], i)  # no keys
+    with pytest.raises(ValueError):  # more than 16 slots a row
+        RC.rowconv_cuda(i[:, :17], torch.zeros((8, 17 * RC.C), device=cuda,
+                                               dtype=torch.bfloat16),
+                        torch.zeros((3, RC.C, RC.COUT), device=cuda,
+                                    dtype=torch.bfloat16), [0], RC.X_OFF)

@@ -1,9 +1,13 @@
 """The probe kernels of csrc/probe_extract.cu and csrc/probe_dot.cu against
 their plain PyTorch versions (needs the card).
 
-T10 (probe_extract): each variant at a small case (narrow widths that are
-not multiples of the kernel's 64-column tile or 32-deep chunk, span 64 <
-bs so out-of-window taps occur) and at the TPU probe's UNet L4 case.
+T10 (probe_extract): each variant at a small case (K = kx*TCP = 144 and
+TOP = 80 end inside the kernel's 32-deep chunk and 128-column tile, span 64
+< bs so out-of-window taps occur), at the L8 widths (TCP = TOP = 384, three
+column tiles), at span 512 (the kernel's maximum), at V not a multiple of
+bs, at TOP = 56 (most of the column tile masked) with TCP = 8 < one
+chunk, and at the TPU probe's UNet L4 case; two calls agree bit for bit,
+and widths that are not multiples of 8 raise.
 Tolerance 5e-4 x max(1, max|plain|), the span kernel's: exact float32
 products of bf16 operands summed in another order.
 T12 (probe_dotshapes): both variants at all 12 shapes with one copy (its
@@ -38,6 +42,10 @@ def cuda():
 # name, V, TCP, TOP, span, G
 EXTRACT_CASES = [
     ("small_span64", 1024, 48, 80, 64, 2),
+    ("l8_widths", 1024, 384, 384, 384, 3),
+    ("span512", 2048, 128, 128, 512, 3),
+    ("v_ragged", 1000, 64, 128, 256, 3),
+    ("top56_tcp8_ragged", 777, 8, 56, 128, 2),
     ("unet_l4", 24_576, 128, 128, 384, 9),
 ]
 
@@ -52,10 +60,21 @@ def test_extract_kernel_matches_plain(case, variant, cuda):
     got = PE.extract_cuda(*args, kx=3, span=span, bs=128, variant=variant)
     torch.cuda.synchronize()
     assert PE.KERNEL.launches[variant] == before + 1
+    assert torch.equal(got, PE.extract_cuda(*args, kx=3, span=span, bs=128,
+                                            variant=variant))
     ref = PE.extract_plain(*args, kx=3, span=span, bs=128)
     assert got.shape == ref.shape == (V, TOP) and got.dtype == torch.float32
     scale = max(1.0, float(ref.abs().max()))
     assert float((got - ref).abs().max()) <= PE.TOL * scale
+
+
+@pytest.mark.parametrize("TCP,TOP", [(12, 16), (16, 20), (4, 16)])
+def test_extract_cuda_rejects_geometry(TCP, TOP, cuda):
+    args = PE.case_tensors(PE.make_case(256, TCP, TOP, 64, 2, 3, 128), cuda)
+    before = dict(PE.KERNEL.launches)
+    with pytest.raises(ValueError, match="geometry"):
+        PE.extract_cuda(*args, kx=3, span=64, bs=128, variant="A")
+    assert PE.KERNEL.launches == before
 
 
 def _check_dot(a, b, reps, variant, copies=1, splits=None):

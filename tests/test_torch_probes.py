@@ -107,6 +107,23 @@ def test_extract_plain_matches_tpu_kernels(tpu_extract, variant, span):
     assert (span == 64) == (np.abs(unrestricted - ref).max() > 1e-3)
 
 
+@pytest.mark.parametrize("V,span", [(512, 64), (512, 256), (500, 128)],
+                         ids=["span64", "span256", "V500"])
+def test_extract_gathered_matmul_matches_plain(V, span):
+    """The one-call yardstick's operands: the taps gathered beforehand, by
+    the stacked weights, give extract_plain's output (V = 500: the last
+    block of bs = 128 is partial)."""
+    args = PE.case_tensors(PE.make_case(V, TCP, TOP, span, G, KX, BS), "cpu")
+    X, W = PE.extract_gathered(*args, kx=KX, span=span, bs=BS)
+    assert X.shape == (V, G * KX * TCP) and X.dtype == torch.bfloat16
+    assert W.shape == (G * KX * TCP, TOP) and W.dtype == torch.bfloat16
+    ref = PE.extract_plain(*args, kx=KX, span=span, bs=BS)
+    got = X.float() @ W.float()
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert float(ref.abs().max()) > 0
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("slots", ["without", "with"])
 def test_span_conv_apply_matches_jax(slots, dtype):
