@@ -28,20 +28,32 @@
 //            kernel of four queries a thread with 16-byte streams measured
 //            within the calls' noise of it (PERF.md).
 //   bsearch  out[i] = the left lower bound of q[i] in sorted keys[0, T) (the
-//            first index with keys[index] >= q[i], T if none). One wave of
-//            1024-thread blocks; each stages every step-th key (at most
-//            SAMPLE_MAX, 128 KB) in shared memory once, searches that sample
-//            first and finishes inside the bracket of `step` keys, one sector
-//            of global memory (L2) at T = 262,144: 16 of its 20 loads come
-//            from shared memory, 3 from L1, 1 from L2 (8,192 keys: all 14
-//            from shared memory). Bound by L2 sectors and the latency of
-//            dependent loads: a random 4-byte read costs a 32-byte sector,
-//            so the sample is as fine as shared memory allows, and the
-//            searches are branchless, the same steps for every query, so
-//            each thread runs QPT of them in lockstep; the sample's layout is
-//            swizzled against bank conflicts. A lower bound has T + 1
-//            answers and needs ceil(log2(T + 1)) halvings; the TPU bodies
-//            ran ceil(log2 T) and so return 0 for keys[0] < q <= keys[1].
+//            first index with keys[index] >= q[i], T if none). The keys
+//            fall in buckets of 2^s (at most 2^15 buckets: T2's 262,144 keys
+//            in buckets of 8, T6's 8,192 in buckets of 1), and the first key
+//            of every bucket but the first is a splitter. The splitters are
+//            a tree in BFS (Eytzinger) order, padded with INT_MAX to 2^h - 1
+//            nodes (at most 128 KB), which every block holds in shared
+//            memory: where buckets hold more than one key a pre-pass
+//            (tree_build_kernel) builds it once per call into the wrapper's
+//            scratch and each block takes it in one bulk copy
+//            (cp.async.bulk on an mbarrier); where they hold one, each block
+//            builds it from the contiguous keys (a pre-pass kernel cost more
+//            device time than the build, PERF.md). The first queries are in
+//            flight meanwhile. A query then runs h branchless steps
+//            i = 2i + (tree[i] < v) (a shift-add, no index arithmetic: the
+//            top five levels are one 128-byte row, so a warp's first loads
+//            are broadcasts, and each level is contiguous, so a deeper one
+//            costs its random lanes' bank conflicts, ~3.5 wavefronts) and
+//            lands in bucket i - 2^h; buckets of one key are then done
+//            (keys[0] decides bucket 0), larger ones halve down to a group of
+//            8 keys, read as two 16-byte loads of one 32-byte sector from L2.
+//            What bounds it: T2 by that sector per query (134 MB) beside
+//            35 shared-memory wavefronts a warp of queries, T6 by its 28
+//            wavefronts. Queries and answers move as 16-byte evict-first
+//            quads. A lower bound has T + 1 answers; the TPU bodies ran
+//            ceil(log2 T) halvings and so return 0 for
+//            keys[0] < q <= keys[1].
 //   lane     out[i, l] = op[(i / S) * stride + idx[i, l], l], with idx[i, l]
 //            in [0, span): span = stride, or every row of op when stride is
 //            0 (one window over the whole table). What bounds it: HBM
@@ -74,7 +86,9 @@
 //   ptxas -v (sm_90a, -O3), registers a thread, no spills and no stack in
 //   any: gather_rows_kernel 32, gather_rows_any_kernel 22-24,
 //   lane_staged_kernel 32-36 (dynamic shared memory span x 128 bytes),
-//   lane_l2_kernel 26-28, lower_bound_kernel 54.
+//   lane_l2_kernel 26-28, lower_bound_kernel 54 (kTailVec), 39-40
+//   (kTailNone), 30-32 (kTailScalar), each 4 << h bytes of dynamic shared
+//   memory and 16 static (kTailNone: 0), tree_build_kernel 10.
 // 32-bit offsets: every array holds at most 2^30 elements (checked). Indices
 // are not clamped: the callers check them once, on the host.
 
@@ -90,9 +104,13 @@ constexpr int ROWS_PER_SM = 8;     // rows: blocks per SM in the grid
 constexpr int ANY_PER_SM = 32;     // rows, other widths: blocks per SM
 constexpr int RPT = 4;             // lane, staged: rows in flight a thread
 constexpr int RPT_L2 = 2;          // lane, l2: rows in flight a thread
-constexpr int SAMPLE_MAX = 32768;  // bsearch: keys staged per block (128 KB)
-constexpr int QPT = 8;             // bsearch: queries in flight per thread
+constexpr int TREE_LEVELS = 15;   // bsearch: tree levels at most
+constexpr int TREE_INTS = 1 << TREE_LEVELS;  // bsearch: tree ints (128 KB)
+constexpr int TREE_TOP = 12;       // bsearch: levels of the first copy (16 KB)
 constexpr int NT_BS = 1024;        // bsearch: threads per block
+constexpr int NT_TREE = 256;       // bsearch: threads per block, tree build
+constexpr int BS_QUADS = 1;        // bsearch: quads a thread a round
+constexpr int BS_QUADS_ONE = 2;    // bsearch, one-key buckets: the same
 constexpr int LQ = 8;              // lane, staged: 16-byte quads a strip
 constexpr int LT = 4 * LQ;         // lane, staged: lanes a strip
 constexpr int LANE_SLOTS = NT / LQ;  // lane, staged: rows a block pass
@@ -212,12 +230,37 @@ __global__ void __launch_bounds__(NT)
 
 // ---- bsearch --------------------------------------------------------------
 
-// The sample's place in shared memory: its low 5 bits XOR-ed with the two
-// 5-bit groups above them (a permutation inside each 32-word row). Binary
-// search probes indices a + 2^j with a a multiple of 2^(j+1), which would
-// all fall in one bank; the folded bits spread them over the banks.
-__device__ __forceinline__ int swz(int i) {
-  return i ^ (((i >> 5) ^ (i >> 10)) & 31);
+// The search's layout for T keys: buckets of 2^s keys (s the least that
+// leaves at most TREE_INTS buckets), the first key of every bucket but the
+// first a splitter, and the splitters in a tree of h levels (2^h - 1 nodes,
+// 2^h >= buckets). Mirrored by micro_kernels.lower_bound_layout.
+struct BsLayout {
+  int s, h;
+};
+
+inline int bit_length(unsigned x) { return x ? 32 - __builtin_clz(x) : 0; }
+
+inline BsLayout bs_layout(int T) {
+  const int over = bit_length((unsigned)(T - 1)) - TREE_LEVELS;
+  const int s = over > 0 ? over : 0;
+  return {s, bit_length((unsigned)((T - 1) >> s))};
+}
+
+// Node i of the tree in BFS order from 1 (children 2i and 2i + 1; node 0
+// holds keys[0]): the splitter of in-order rank r = (2 (i - 2^d) + 1)
+// 2^(h-1-d) at depth d, keys[r 2^s], or INT_MAX past the last bucket.
+__device__ __forceinline__ int tree_node(const int* __restrict__ keys, int i,
+                                         int T, int h, int s) {
+  if (i == 0) return keys[0];
+  const int d = 31 - __clz(i);
+  const int64_t k = (int64_t)(2 * (i - (1 << d)) + 1) << (h - 1 - d + s);
+  return k < T ? keys[k] : INT_MAX;
+}
+
+// The BFS slot of in-order rank r >= 1 (the inverse of tree_node's rank).
+__device__ __forceinline__ int tree_slot(int r, int h) {
+  const int t = __ffs(r) - 1;
+  return (1 << (h - 1 - t)) + (r >> (t + 1));
 }
 
 // A key at or past T reads as +infinity.
@@ -226,52 +269,222 @@ __device__ __forceinline__ int key_at(const int* __restrict__ keys, int i,
   return i < T ? __ldg(keys + i) : INT_MAX;
 }
 
-__global__ void __launch_bounds__(NT_BS)
+// The tree of a call whose buckets hold more than one key, built once into
+// the wrapper's scratch (2^h ints) for every block to copy.
+__global__ void __launch_bounds__(NT_TREE)
+    tree_build_kernel(const int* __restrict__ keys, int* __restrict__ tree,
+                      int T, int h, int s) {
+  const int i = blockIdx.x * NT_TREE + threadIdx.x;
+  if (i < (1 << h)) tree[i] = tree_node(keys, i, T, h, s);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count));
+}
+
+// Waits until the barrier's phase 0 has completed; a copy that has not
+// landed after ~10 s traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait0(uint32_t bar) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    if (clock64() - t0 > (1LL << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  }
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Four adjacent queries from q[i, i + 4) (INT_MAX past n): one evict-first
+// 16-byte load where VQ (q 16-byte aligned) and all four exist.
+template <bool VQ>
+__device__ __forceinline__ int4 load_quad(const int* __restrict__ q,
+                                          int64_t i, int64_t n) {
+  if (VQ && i + 4 <= n) return __ldcs(reinterpret_cast<const int4*>(q + i));
+  return make_int4(__ldcs(q + i), i + 1 < n ? __ldcs(q + i + 1) : INT_MAX,
+                   i + 2 < n ? __ldcs(q + i + 2) : INT_MAX,
+                   i + 3 < n ? __ldcs(q + i + 3) : INT_MAX);
+}
+
+template <bool VQ>
+__device__ __forceinline__ void store_quad(int* __restrict__ out, int64_t i,
+                                           int64_t n, int4 v) {
+  if (VQ && i + 4 <= n) {
+    __stcs(reinterpret_cast<int4*>(out + i), v);
+    return;
+  }
+  __stcs(out + i, v.x);
+  if (i + 1 < n) __stcs(out + i + 1, v.y);
+  if (i + 2 < n) __stcs(out + i + 2, v.z);
+  if (i + 3 < n) __stcs(out + i + 3, v.w);
+}
+
+// What finishes a search after the tree: kTailNone, buckets of one key (the
+// answer follows from the tree and keys[0]); kTailVec, buckets of 2^s >= 8
+// keys, 16-byte aligned: halvings down to a group of 8, read as two
+// 16-byte loads (one 32-byte sector; read key by key, T2's search took 2.15x
+// the device time, PERF.md); kTailScalar, any other bucket, the group of
+// min(2^s, 8) keys read key by key.
+enum Tail { kTailNone = 0, kTailVec = 1, kTailScalar = 2 };
+
+// `levels` branchless steps i = 2i + (tree[i] < v) of QUADS quads of
+// queries, on byte offsets (off = 4i: the load takes the offset as it is).
+template <int QUADS>
+__device__ __forceinline__ void descend(const char* tree, int (&off)[QUADS][4],
+                                        const int4 (&v)[QUADS], int levels) {
+  for (int l = 0; l < levels; ++l)
+#pragma unroll
+    for (int k = 0; k < QUADS; ++k) {
+      const int nv[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        off[k][j] = 2 * off[k][j] +
+                    (*reinterpret_cast<const int*>(tree + off[k][j]) < nv[j]
+                         ? 4
+                         : 0);
+    }
+}
+
+// A thread takes QUADS quads of adjacent queries a round (quads of a round
+// a grid apart). Every block first gets the tree into shared memory: built
+// from keys[0, 2^h) when buckets hold one key (contiguous: 4 bytes read per
+// node), else two bulk copies of the tree built for the call, its top
+// TREE_TOP levels (16 KB) first, so that the first round's descent starts
+// while the other 112 KB land. The first round's queries are in flight
+// meanwhile. Then per query h branchless steps i = 2i + (tree[i] < v) from
+// i = 1: the top 5 levels are one 128-byte row, so a warp's first loads are
+// broadcasts; i - 2^h is the number of splitters below v, so the answer
+// lies in bucket i - 2^h, which the tail finishes.
+template <int TAIL, bool VQ>
+__global__ void __launch_bounds__(NT_BS, 1)
     lower_bound_kernel(const int* __restrict__ keys,
-                       const int* __restrict__ q, int* __restrict__ out, int T,
-                       int64_t n, int step, int ns) {
-  extern __shared__ int sample[];  // ns <= SAMPLE_MAX keys
-  for (int j = threadIdx.x; j < ns; j += NT_BS)
-    sample[swz(j)] = keys[(int64_t)j * step];
-  __syncthreads();
-  const int64_t threads = (int64_t)gridDim.x * NT_BS;
-  for (int64_t i0 = (int64_t)blockIdx.x * NT_BS + threadIdx.x; i0 < n;
-       i0 += threads * QPT) {
-    int v[QPT], a[QPT];
+                       const int* __restrict__ built,
+                       const int* __restrict__ q, int* __restrict__ out,
+                       int T, int64_t n, int h, int s) {
+  constexpr int QUADS = TAIL == kTailNone ? BS_QUADS_ONE : BS_QUADS;
+  extern __shared__ __align__(16) int tree[];  // 2^h ints
+  __shared__ __align__(8) uint64_t bar[2];  // the tree's two copies
+  const int nodes = 1 << h;
+  const int64_t stride = (int64_t)gridDim.x * NT_BS * 4;  // queries
+  int64_t i0 = ((int64_t)blockIdx.x * NT_BS + threadIdx.x) * 4;
+  const uint32_t bar_top = smem_u32(&bar[0]), bar_rest = smem_u32(&bar[1]);
+  if (TAIL != kTailNone && threadIdx.x == 0) {  // h = TREE_LEVELS here
+    constexpr int top = 4 << TREE_TOP;  // bytes
+    mbar_init(bar_top, 1);
+    mbar_init(bar_rest, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk_load(smem_u32(tree), built, top, bar_top);
+    bulk_load(smem_u32(tree) + top, built + top / 4, nodes * 4 - top,
+              bar_rest);
+  }
+  int4 v[QUADS];
 #pragma unroll
-    for (int k = 0; k < QPT; ++k) {
-      v[k] = i0 + k * threads < n ? q[i0 + k * threads] : INT_MAX;
-      a[k] = 0;
+  for (int k = 0; k < QUADS; ++k)
+    v[k] = i0 + k * stride < n ? load_quad<VQ>(q, i0 + k * stride, n)
+                               : make_int4(0, 0, 0, 0);
+  if (TAIL == kTailNone) {
+    for (int r = threadIdx.x; r < nodes; r += NT_BS)
+      tree[r ? tree_slot(r, h) : 0] = r < T ? keys[r] : INT_MAX;
+    __syncthreads();
+  } else {
+    __syncthreads();  // the barriers are initialised
+    mbar_wait0(bar_top);
+  }
+  const int key0 = tree[0];
+  for (; i0 < n; i0 += QUADS * stride) {
+    int node[QUADS][4];  // byte offsets in the descent, then nodes
+#pragma unroll
+    for (int k = 0; k < QUADS; ++k)
+      node[k][0] = node[k][1] = node[k][2] = node[k][3] = 4;
+    const char* tb = reinterpret_cast<const char*>(tree);
+    if (TAIL == kTailNone) {
+      descend<QUADS>(tb, node, v, h);
+    } else {  // the rest may still be landing in the first round
+      descend<QUADS>(tb, node, v, TREE_TOP);
+      mbar_wait0(bar_rest);
+      descend<QUADS>(tb, node, v, h - TREE_TOP);
     }
-    // Branchless lower bounds (the same steps for every query, so QPT
-    // searches run in lockstep, each load independent of the others'):
-    // first the number of samples below v, in [0, ns] ...
-    for (int m = ns; m > 1; m -= m >> 1) {
-      const int half = m >> 1;
 #pragma unroll
-      for (int k = 0; k < QPT; ++k)
-        a[k] += sample[swz(a[k] + half)] < v[k] ? half : 0;
-    }
-    bool live[QPT];
+    for (int k = 0; k < QUADS; ++k)
 #pragma unroll
-    for (int k = 0; k < QPT; ++k) {
-      const int lo = a[k] + (sample[swz(a[k])] < v[k]);
-      // ... then keys[(lo - 1) * step] < v <= keys[lo * step], so the
-      // answer lies in [a, a + step - 1]: a branchless search of the
-      // step - 1 keys from a (lo == 0: the answer is 0)
-      live[k] = lo > 0;
-      a[k] = live[k] ? (lo - 1) * step + 1 : 0;
-    }
-    for (int m = step - 1; m > 1; m -= m >> 1) {
-      const int half = m >> 1;
+      for (int j = 0; j < 4; ++j) node[k][j] >>= 2;
 #pragma unroll
-      for (int k = 0; k < QPT; ++k)
-        a[k] += key_at(keys, a[k] + half, T) < v[k] ? half : 0;
-    }
+    for (int k = 0; k < QUADS; ++k) {
+      const int64_t i = i0 + k * stride;
+      const int nv[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+      int ans[4];
+      if (TAIL == kTailNone) {  // bucket c is keys[c]; keys[c] < v for c > 0
 #pragma unroll
-    for (int k = 0; k < QPT; ++k) {
-      if (step > 1) a[k] += key_at(keys, a[k], T) < v[k];
-      if (i0 + k * threads < n) out[i0 + k * threads] = live[k] ? a[k] : 0;
+        for (int j = 0; j < 4; ++j) {
+          const int c = node[k][j] - nodes;
+          ans[j] = c + (c > 0 || key0 < nv[j]);
+        }
+      } else {
+        int pos[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pos[j] = (node[k][j] - nodes) << s;
+        for (int half = 1 << (s - 1); half >= 8; half >>= 1)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            pos[j] += key_at(keys, pos[j] + half - 1, T) < nv[j] ? half : 0;
+        if (TAIL == kTailVec) {  // the group of 8 at pos[j]: one sector
+          int4 g[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (pos[j] + 8 <= T) {
+              const int4* p = reinterpret_cast<const int4*>(keys + pos[j]);
+              g[j][0] = __ldg(p);
+              g[j][1] = __ldg(p + 1);
+            } else {  // the last bucket, cut by T
+              g[j][0] = make_int4(
+                  key_at(keys, pos[j], T), key_at(keys, pos[j] + 1, T),
+                  key_at(keys, pos[j] + 2, T), key_at(keys, pos[j] + 3, T));
+              g[j][1] = make_int4(
+                  key_at(keys, pos[j] + 4, T), key_at(keys, pos[j] + 5, T),
+                  key_at(keys, pos[j] + 6, T), key_at(keys, pos[j] + 7, T));
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            ans[j] = pos[j] + (g[j][0].x < nv[j]) + (g[j][0].y < nv[j]) +
+                     (g[j][0].z < nv[j]) + (g[j][0].w < nv[j]) +
+                     (g[j][1].x < nv[j]) + (g[j][1].y < nv[j]) +
+                     (g[j][1].z < nv[j]) + (g[j][1].w < nv[j]);
+        } else {
+          const int group = min(1 << s, 8);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ans[j] = pos[j];
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (e < group) ans[j] += key_at(keys, pos[j] + e, T) < nv[j];
+          }
+        }
+      }
+      if (i < n)
+        store_quad<VQ>(out, i, n, make_int4(ans[0], ans[1], ans[2], ans[3]));
+      const int64_t inext = i + QUADS * stride;
+      if (inext < n) v[k] = load_quad<VQ>(q, inext, n);
     }
   }
 }
@@ -448,21 +661,77 @@ int launch_lane(const uint32_t* op, const int* idx, uint32_t* out, int n,
   return (int)cudaSuccess;
 }
 
+// Build the tree once where buckets hold more than one key, then one wave
+// of blocks (as many as fit on the card, fewer when the queries give each
+// thread less than a quad). The attribute and occupancy queries are made
+// once per device and kernel: they cost more host time than the launch.
+template <int TAIL, bool VQ>
+int launch_search(const int* keys, const int* q, int* out, int* scratch,
+                  int T, int64_t n, BsLayout L, cudaStream_t st) {
+  auto kern = lower_bound_kernel<TAIL, VQ>;
+  static thread_local int last_dev = -1, per_sm[TREE_LEVELS + 1];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != last_dev) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         TREE_INTS * (int)sizeof(int));
+    for (int h = 0; h <= TREE_LEVELS; ++h)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[h], kern, NT_BS, (size_t)sizeof(int) << h);
+    last_dev = dev;
+  }
+  const size_t smem = (size_t)sizeof(int) << L.h;
+  if (TAIL != kTailNone) {  // s > 0: the tree has TREE_LEVELS levels
+    if (!scratch || L.h != TREE_LEVELS) return (int)cudaErrorInvalidValue;
+    tree_build_kernel<<<((1 << L.h) + NT_TREE - 1) / NT_TREE, NT_TREE, 0,
+                        st>>>(keys, scratch, T, L.h, L.s);
+  }
+  const int64_t quads = (n + 3) / 4;
+  const int64_t need = (quads + NT_BS - 1) / NT_BS;
+  const int64_t cap =
+      (int64_t)sm_count() * (per_sm[L.h] > 1 ? per_sm[L.h] : 1);
+  kern<<<(unsigned)(need < cap ? need : cap), NT_BS, smem, st>>>(
+      keys, scratch, q, out, T, n, L.h, L.s);
+  return (int)cudaSuccess;
+}
+
+int launch_bsearch(const int* keys, const int* q, int* out, int* scratch,
+                   int T, int64_t n, cudaStream_t st) {
+  const BsLayout L = bs_layout(T);
+  const bool vq = ((uintptr_t)q | (uintptr_t)out) % 16 == 0;
+  const int tail = L.s == 0                                  ? kTailNone
+                   : L.s >= 3 && (uintptr_t)keys % 16 == 0 ? kTailVec
+                                                             : kTailScalar;
+  auto go = [&](auto launch) {
+    return launch(keys, q, out, scratch, T, n, L, st);
+  };
+  switch (tail * 2 + vq) {
+    case 0: return go(launch_search<kTailNone, false>);
+    case 1: return go(launch_search<kTailNone, true>);
+    case 2: return go(launch_search<kTailVec, false>);
+    case 3: return go(launch_search<kTailVec, true>);
+    case 4: return go(launch_search<kTailScalar, false>);
+    default: return go(launch_search<kTailScalar, true>);
+  }
+}
+
 }  // namespace insmos_micro_gather
 
 // One entry for the three kernels (variant 0 rows, 1 bsearch, 2 lane), 4-byte
 // elements throughout:
 //   rows     src table (src_rows, width), idx (n,), out (n, width)
 //   bsearch  src sorted keys (src_rows,), idx queries (n,), out (n,) int32;
-//            width 1
+//            width 1; scratch 2^h ints for the tree (bs_layout), where
+//            buckets hold more than one key
 //   lane     src op (src_rows, width), idx (n, width) with values in
 //            [0, stride) (or [0, src_rows) when stride is 0), out (n, width);
 //            windows of S rows of idx, window b at op row b * stride
-// n >= 1, src_rows >= 1, width >= 1; the pointers are 4-byte aligned; rows
-// and lane: n * width and src_rows * width at most 2^30.
+// n >= 1, src_rows >= 1, width >= 1; the pointers are 4-byte aligned, the
+// scratch 16-byte aligned; rows and lane: n * width and src_rows * width at
+// most 2^30, no scratch.
 extern "C" int micro_gather(const void* src, const void* idx, void* out,
-                            long long n, long long src_rows, int width,
-                            int S, long long stride, int variant,
+                            void* scratch, long long n, long long src_rows,
+                            int width, int S, long long stride, int variant,
                             void* stream) {
   using namespace insmos_micro_gather;
   cudaStream_t st = (cudaStream_t)stream;
@@ -482,29 +751,9 @@ extern "C" int micro_gather(const void* src, const void* idx, void* out,
     }
   } else if (variant == kBsearch) {
     if (width != 1 || src_rows > (1 << 30)) return (int)cudaErrorInvalidValue;
-    const int T = (int)src_rows;
-    const int step = (T + SAMPLE_MAX - 1) / SAMPLE_MAX;
-    const int ns = (T + step - 1) / step;
-    // one wave of blocks (each stages the sample once), its size kept for
-    // the last device and sample size: the attribute and occupancy queries
-    // cost more host time than the launch
-    static thread_local int last_dev = -1, last_ns = -1, last_cap = 0;
-    const size_t smem = (size_t)ns * sizeof(int);
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev != last_dev || ns != last_ns) {
-      cudaFuncSetAttribute(lower_bound_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SAMPLE_MAX * (int)sizeof(int));
-      int per_sm = 0;
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, lower_bound_kernel, NT_BS, smem);
-      last_dev = dev, last_ns = ns, last_cap = sm_count() * per_sm;
-    }
-    const int64_t need = (n + (int64_t)QPT * NT_BS - 1) / (QPT * NT_BS);
-    lower_bound_kernel<<<(unsigned)(need < last_cap ? need : last_cap), NT_BS,
-                         smem, st>>>((const int*)src, pi, (int*)out, T, n,
-                                     step, ns);
+    const int err = launch_bsearch((const int*)src, pi, (int*)out,
+                                   (int*)scratch, (int)src_rows, n, st);
+    if (err) return err;
   } else if (variant == kLane) {
     if (S < 1 || stride < 0) return (int)cudaErrorInvalidValue;
     const int64_t nb = (n + S - 1) / S;  // windows

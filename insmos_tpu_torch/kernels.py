@@ -113,8 +113,9 @@ class KernelEntry:
     """One ``extern "C" int`` entry point of the library, bound with ctypes
     at first call, with a launch count per variant.
 
-    Calling it launches the kernel and adds one to ``launches[variant]``;
-    a non-zero CUDA error from the launch raises instead."""
+    Calling it launches the variant's kernel (for some variants a pre-pass
+    kernel first) and adds one to ``launches[variant]``: the count is of
+    entry calls; a non-zero CUDA error from the launch raises instead."""
 
     def __init__(self, symbol: str, argtypes: list, variants):
         self.symbol = symbol

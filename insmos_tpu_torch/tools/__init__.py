@@ -4,7 +4,8 @@ helpers they and ``chip_smoke.py`` share.
 
     python -m insmos_tpu_torch.tools.probe_extract [--production]
     python -m insmos_tpu_torch.tools.probe_dotshapes [--sweep]
-    python -m insmos_tpu_torch.tools.turns dot|gather|extract|rowconv OLD_ROOT
+    python -m insmos_tpu_torch.tools.turns dot|gather|extract|rowconv|bsearch \
+        OLD_ROOT
     python -m insmos_tpu_torch.tools.micro_pallas
     python -m insmos_tpu_torch.tools.micro_pallas2
     python -m insmos_tpu_torch.tools.micro_lanegather

@@ -3,15 +3,25 @@ each beside its plain PyTorch version, and the runner the probes share.
 
     gather_rows   out[q] = table[idx[q]]                      T1, T3, T4
     lower_bound   the left lower bound of each query          T2, T6
+                  (keys in buckets of 2^s; a tree of the buckets' first
+                  keys in BFS order, searched in shared memory; the
+                  answer's bucket finished from global memory: one 32-byte
+                  sector a query at T2, nothing at T6)
     lane_gather   out[i, l] = op[(i // S) * stride + idx[i, l], l]
                                                               T5, T7, T8, T9
 
 ``*_plain`` is the plain version (index_select, searchsorted, gather) that
-the CPU tests hold against the TPU probes' bodies. ``*_cuda`` launches the
-kernel once on the current stream; it takes CUDA tensors only, of 4-byte
+the CPU tests hold against the TPU probes' bodies. ``*_cuda`` calls the
+library's entry once on the current stream: one kernel, and for
+``lower_bound`` with buckets of more than one key (T2) the tree's pre-pass
+before it; the launch count (``KERNEL.launches``) counts entry calls. It
+takes CUDA tensors only, of 4-byte
 elements (float32 or int32, copied bit for bit) and int32 indices. The
 ``rows`` and ``lane`` kernels use 32-bit offsets: their wrappers raise
 ValueError for a table or output of more than 2^30 elements.
+``lower_bound_mirror`` repeats the search kernel's layout and index
+arithmetic in torch (``lower_bound_layout``, ``lower_bound_tree``) so that
+the CPU tests hold it against ``lower_bound_plain``.
 """
 
 from __future__ import annotations
@@ -35,10 +45,12 @@ ELEM_TYPES = (torch.float32, torch.int32)
 
 MAX_ELEMS = 2**30  # rows and lane: elements of each array (32-bit offsets)
 
+TREE_LEVELS = 15  # lower_bound: levels of the splitter tree at most
+
 _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# src, idx, out; n, src_rows; width, S; stride; variant; stream
+# src, idx, out, scratch; n, src_rows; width, S; stride; variant; stream
 KERNEL = KernelEntry("micro_gather",
-                     [_p] * 3 + [_l] * 2 + [_i] * 2 + [_l, _i, _p], VARIANTS)
+                     [_p] * 4 + [_l] * 2 + [_i] * 2 + [_l, _i, _p], VARIANTS)
 
 
 def gather_rows_plain(table, idx):
@@ -81,9 +93,11 @@ def _check_size(*tensors):
                          f"{[tuple(t.shape) for t in tensors]}")
 
 
-def _launch(variant, src, idx, out, n, src_rows, width, S=1, stride=0):
-    KERNEL(variant, src.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
-           src_rows, width, S, stride, VARIANTS.index(variant),
+def _launch(variant, src, idx, out, n, src_rows, width, S=1, stride=0,
+            scratch=None):
+    KERNEL(variant, src.data_ptr(), idx.data_ptr(), out.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), n, src_rows,
+           width, S, stride, VARIANTS.index(variant),
            torch.cuda.current_stream(src.device).cuda_stream)
 
 
@@ -119,8 +133,96 @@ def lower_bound_cuda(keys, q):
     SC._check(q, "q", torch.int32, q.shape, dev)
     out = torch.empty(q.shape, dtype=torch.int32, device=dev)
     if out.numel():
-        _launch("bsearch", keys, q, out, q.numel(), keys.shape[0], 1)
+        s, h = lower_bound_layout(keys.shape[0])
+        # the tree's scratch where buckets hold more than one key
+        tree = torch.empty(1 << h, dtype=torch.int32, device=dev) if s \
+            else None
+        _launch("bsearch", keys, q, out, q.numel(), keys.shape[0], 1,
+                scratch=tree)
     return out
+
+
+# The search's layout and index arithmetic (csrc/micro_gather.cu,
+# bs_layout, tree_node, tree_slot and lower_bound_kernel), kept in torch for
+# the CPU tests.
+
+def lower_bound_layout(T):
+    """(s, h) for T keys: buckets of 2^s keys, s the least that leaves at
+    most 2^15 buckets; the first key of each bucket but the first is a
+    splitter, and the splitters fill a tree of h levels (2^h >= buckets)."""
+    s = max(0, (T - 1).bit_length() - TREE_LEVELS)
+    return s, ((T - 1) >> s).bit_length()
+
+
+def tree_rank(i, h):
+    """The in-order rank of BFS node i >= 1 (children 2i, 2i + 1) of a tree
+    of h levels."""
+    d = torch.floor(torch.log2(i.double())).long()
+    return (2 * (i - (1 << d)) + 1) << (h - 1 - d)
+
+
+def tree_slot(r, h):
+    """The BFS node of in-order rank r >= 1 (tree_rank's inverse)."""
+    t = torch.zeros_like(r)
+    while bool(((r >> t) & 1 == 0).any()):
+        t = t + ((r >> t) & 1 == 0).long()
+    return (1 << (h - 1 - t)) + (r >> (t + 1))
+
+
+def lower_bound_tree(keys):
+    """The kernel's tree, 2^h int64 values: node 0 keys[0], node i the
+    splitter keys[rank(i) * 2^s], INT_MAX past the last bucket. Built as
+    the kernel builds it: by node where buckets hold more than one key (the
+    tree_build_kernel), by rank from the contiguous keys where they hold
+    one (each block)."""
+    T = keys.numel()
+    s, h = lower_bound_layout(T)
+    big = torch.iinfo(torch.int32).max
+    tree = torch.full((1 << h,), big, dtype=torch.int64)
+    tree[0] = keys[0]
+    if s:
+        i = torch.arange(1, 1 << h)
+        k = tree_rank(i, h) << s
+        ok = k < T
+        tree[i[ok]] = keys[k[ok]].long()
+    else:
+        r = torch.arange(1, T)
+        tree[tree_slot(r, h)] = keys[1:].long()
+    return tree
+
+
+def lower_bound_mirror(keys, q):
+    """The kernel's search in torch (same contract as lower_bound_plain):
+    h steps i = 2i + (tree[i] < v) from i = 1; c = i - 2^h splitters lie
+    below v, so the answer lies in bucket c: from keys[0] alone where
+    buckets hold one key, else by halvings of the bucket down to a group of
+    min(2^s, 8) keys and a count of those below v."""
+    T = keys.numel()
+    s, h = lower_bound_layout(T)
+    tree = lower_bound_tree(keys)
+    v = q.reshape(-1).long()
+    node = torch.ones_like(v)
+    for _ in range(h):
+        node = 2 * node + (tree[node] < v).long()
+    c = node - (1 << h)
+    if s == 0:
+        ans = c + ((c > 0) | (tree[0] < v)).long()
+        return ans.int().reshape(q.shape)
+    big = torch.iinfo(torch.int32).max
+    pad = torch.cat([keys.long(), torch.full((8,), big, dtype=torch.int64)])
+
+    def key_at(i):
+        return pad[i.clamp(max=T)]
+
+    pos = c << s
+    half = 1 << (s - 1)
+    while half >= 8:
+        pos = pos + torch.where(key_at(pos + half - 1) < v, half, 0)
+        half >>= 1
+    ans = pos.clone()
+    for e in range(min(1 << s, 8)):
+        ans += (key_at(pos + e) < v).long()
+    return ans.int().reshape(q.shape)
 
 
 def lane_gather_cuda(op, idx, S, stride):
@@ -160,8 +262,9 @@ def to_device(*arrays):
 
 def run_exact(tag, name, kernel, plain, variant, amount, unit, inputs,
               library, iters=10):
-    """``kernel()`` (one launch of ``variant``) against ``plain()`` bit for
-    bit, then both timed with CUDA events, and ``library()``, one PyTorch
+    """``kernel()`` (one call of ``variant``'s entry, counted once in
+    ``launches`` also where the entry runs a pre-pass) against ``plain()``
+    bit for bit, then both timed with CUDA events, and ``library()``, one PyTorch
     call that computes the same function, beside them; the kernel and
     ``library()`` also by device time (``device_ms``, torch.profiler), which
     does not read the host time between launches. ``amount`` is the work of

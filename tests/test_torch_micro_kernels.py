@@ -4,10 +4,12 @@ against their plain PyTorch versions (needs the card).
 gather_rows at widths 1, 3, 8 and 128 (16-, 8- and 4-byte pieces, and
 tables that are only 4-byte aligned at widths 2, 4, 8 and 128; width 1
 with a query count that is not a multiple of 4, a misaligned table or
-index), lower_bound at 1 to 262,145
-keys (the whole key array in shared memory, or a sample of it and a bracket
-of 8 or 9 keys from global memory; keys with repeats; the band keys[0] < q
-<= keys[1]), lane_gather at S from 8 to 384 with staged windows and
+index), lower_bound at 1 to 2^22 keys (the cases of lower_bound_cases.py:
+the tree of every key in shared memory, or of buckets of 2 to 128 keys
+finished from global memory; T at the layout's boundaries; keys with
+repeats, all equal, or holding INT_MIN and INT_MAX; the band keys[0] < q
+<= keys[1]; one query; queries or keys only 4-byte aligned; a repeat call),
+lane_gather at S from 8 to 384 with staged windows and
 windows read from L2, rows that are not a multiple of the block, lanes
 that are not a multiple of 32, staged windows split over many blocks,
 T5's full case from L2, lanes not a multiple of 4, op or idx only 4-byte
@@ -24,6 +26,7 @@ Run on the card with:
 machine does not have).
 """
 
+import lower_bound_cases as LBC
 import numpy as np
 import pytest
 import torch
@@ -103,22 +106,22 @@ def test_gather_rows_w1_misaligned_matches_plain(Q, where, cuda):
            lambda: MK.gather_rows_plain(table, idx), "rows")
 
 
-@pytest.mark.parametrize("T", [1, 5, 8192, 8193, 32_768, 262_144, 262_145])
-@pytest.mark.parametrize("qshape", [(1000,), (33, 128)], ids=["1d", "2d"])
-def test_lower_bound_matches_plain(T, qshape, cuda):
-    rng = np.random.default_rng(T)
-    # values from a narrow range so that keys repeat
-    keys = np.sort(rng.integers(-5 * T, 5 * T + 1, T)).astype(np.int32)
-    q = rng.integers(-6 * T - 2, 6 * T + 3, qshape).astype(np.int32).ravel()
-    q[:4] = [keys[0], keys[0] + 1, keys[min(1, T - 1)], keys[-1] + 1]
-    keys, q = (torch.from_numpy(a).to(cuda) for a in (keys,
-                                                      q.reshape(qshape)))
+@pytest.mark.parametrize("kind,T,qshape", LBC.CASES, ids=LBC.IDS)
+def test_lower_bound_matches_plain(kind, T, qshape, cuda):
+    keys, q = (torch.from_numpy(a).to(cuda)
+               for a in LBC.make_case(kind, T, qshape))
+    if kind == "q_skew":
+        q = _misaligned(q)
+    elif kind == "keys_skew":
+        keys = _misaligned(keys)
     _exact(lambda: MK.lower_bound_cuda(keys, q),
            lambda: MK.lower_bound_plain(keys, q), "bsearch")
-    if T > 1:
-        got = MK.lower_bound_cuda(keys, q).flatten()
+    got = MK.lower_bound_cuda(keys, q)
+    # a repeat call gives the same bits
+    assert torch.equal(got, MK.lower_bound_cuda(keys, q))
+    if kind == "random" and T > 1:
         band = (q.flatten() > keys[0]) & (q.flatten() <= keys[1])
-        assert bool((got[band] == 1).all())
+        assert bool((got.flatten()[band] == 1).all())
 
 
 # rows, L, S, stride, op_rows (None: (rows / S) * stride)

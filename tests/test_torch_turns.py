@@ -4,9 +4,13 @@ run's events, device and one-call device ms, '-' where a run lacks the
 reading (a path only the newer tree has, a probe without a one-call)."""
 
 import importlib.util
+import itertools
 
+import numpy as np
 import pytest
+import torch
 
+from insmos_tpu_torch.tools import micro_kernels as MK
 from insmos_tpu_torch.tools import probe_extract as PE
 from insmos_tpu_torch.tools import probe_pallas_rowconv as RC
 from insmos_tpu_torch.tools import turns
@@ -40,7 +44,8 @@ def test_table_aligns_runs_by_label():
     assert len(lines) == 4
 
 
-@pytest.mark.parametrize("probe", ["dot", "gather", "extract", "rowconv"])
+@pytest.mark.parametrize("probe",
+                         ["dot", "gather", "extract", "rowconv", "bsearch"])
 def test_workers_exist(probe):
     assert turns.WORKERS[probe].is_file()
 
@@ -113,4 +118,47 @@ def test_worker_rows_align_old_against_new(probe, monkeypatch):
         lines = turns.table([_run("old", old), _run("new", new)])
         assert lines[3] == ("sum of 2 cases | 20.0000, 2.0000 | 14.0000, "
                             "1.4000 | -, -")
+    assert len(lines) == len(new) + 1
+
+
+class _Timing:
+    """Made-up readings in place of the card's: each call of ``cuda_ms``
+    and ``device_ms`` returns the next of ``scale`` x 1, 2, 3, ..."""
+
+    def __init__(self, scale):
+        self.scale, self.n = scale, itertools.count(1)
+
+    def cuda_ms(self, fn, iters):
+        fn()
+        return self.scale * next(self.n)
+
+    device_ms = cuda_ms
+
+
+def test_bsearch_worker_rows_align_old_against_new(monkeypatch):
+    """The bsearch worker on small made-up cases, with the plain version in
+    the kernel's place on the CPU: one row per probe, each with events,
+    device and searchsorted's device ms, and one row for their sum;
+    ``table`` aligns old against new."""
+    worker = _worker("bsearch")
+    rng = np.random.default_rng(0)
+    cases = [(label, np.sort(rng.integers(0, 2**30, T)).astype(np.int32),
+              rng.integers(0, 2**30, shape).astype(np.int32))
+             for label, T, shape in (("T2 lower_bound", 4096, (1000,)),
+                                     ("T6 lower_bound", 64, (8, 128)))]
+    monkeypatch.setitem(worker.__globals__, "_cases", lambda: iter(cases))
+    monkeypatch.setattr(MK, "DEVICE", torch.device("cpu"))
+    monkeypatch.setattr(MK, "lower_bound_cuda", MK.lower_bound_plain)
+    old, new = worker(_Timing(1.0)), worker(_Timing(0.1))
+    assert [r["label"] for r in new] == [
+        "T2 lower_bound", "T6 lower_bound", "sum of 2 probes"]
+    assert new[1] == dict(label="T6 lower_bound", ms=pytest.approx(0.4),
+                          device_ms=pytest.approx(0.5),
+                          library_device_ms=pytest.approx(0.6))
+    assert new[2]["device_ms"] == pytest.approx(0.2 + 0.5)
+    lines = turns.table([_run("old", old), _run("new", new),
+                         _run("new", new), _run("old", old)])
+    assert lines[3] == ("sum of 2 probes | 5.0000, 0.5000, 0.5000, 5.0000 | "
+                        "7.0000, 0.7000, 0.7000, 7.0000 | 9.0000, 0.9000, "
+                        "0.9000, 9.0000")
     assert len(lines) == len(new) + 1
