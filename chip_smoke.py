@@ -10,7 +10,13 @@ full-config streaming step and prints each shape class's kernel time
 beside its bound (SC.span_conv_work), streams 12 scans of the HDL-64E
 raycast fixture through InferencePipeline.push_scan at the full default
 Config (ref-exact mode: full stem every step, window re-rotated per step),
-checks the outputs and the overflow gates, and prints a first step time. Then it runs the
+checks the outputs and the overflow gates, and prints a first step time.
+The incremental phase does the same for the fixed-frame incremental mode
+(the JAX package's bench headline: the fixed-frame stream, the window's
+site set and stem outputs carried across steps, the stem at T=1 on the new
+scan), with the kernels held against plain on every span conv of one of its
+full-window steps and its point logits against the direct pipeline's on
+the same stream. Then it runs the
 span-conv design probes (insmos_tpu_torch.tools.probe_extract, with and
 without --production, and probe_dotshapes) at their full case lists, each
 kernel held against its plain version, and last the micro probes (T1-T9:
@@ -45,9 +51,11 @@ import torch
 
 from insmos_tpu_torch import kernels, setup_device, tools
 from insmos_tpu_torch.config import Config
-from insmos_tpu_torch.data.hdl64 import make_stream
+from insmos_tpu_torch.data.hdl64 import make_fixed_frame_stream, make_stream
 from insmos_tpu_torch.pipeline import InferencePipeline
+from insmos_tpu_torch.sparse import slab as S
 from insmos_tpu_torch.sparse import span_conv as SC
+from insmos_tpu_torch.sparse.tensor import KEY_SENTINEL
 from insmos_tpu_torch.tools import card_line, cuda_ms
 from insmos_tpu_torch.tools import micro_kernels as MK
 from insmos_tpu_torch.tools import micro_lanegather as MLG
@@ -66,6 +74,26 @@ N_SCANS = 12
 # up to kx*TC = 1440 terms per group (bf16: per group on the tensor cores)
 # plus the groups and slots
 TOL = 5e-4
+# Incremental vs direct pipeline point logits in bf16 on the card. Where
+# both see the same window site set they sum the same products in another
+# order only in the stem (T=1 on the scan slab vs T=W on the window); its
+# float32 outputs are rounded to bf16 at down1's input, so a last-bit
+# change can flip a bf16 rounding that travels through ~40 bf16 convs.
+# INC_TOL holds them on the stream with its points moved to voxel centres
+# and cut to the MotionNet crop, where the two site sets are equal at every
+# step (first reading: equal logits at all 12 steps, max abs err 0). On
+# the stream itself the site sets differ, as in the reference: the
+# maintained set keeps only sites that were inside the crop, so window
+# points that enter the crop across its edge as the ego moves are missing
+# from it (up to ~800 of ~255k sites a step on this stream), and the
+# direct pipeline's float32 translation moves a few boundary points into
+# neighbouring voxels; the logits then differ by up to 0.153, at up to 2%
+# of a scan's points (first reading, NVIDIA H100 80GB HBM3, 700 W).
+# INC_TOL_STREAM bounds the largest difference there and INC_SHARE_STREAM
+# the share of points beyond 1e-3.
+INC_TOL = 5e-3
+INC_TOL_STREAM = 0.25
+INC_SHARE_STREAM = 0.05
 # the micro probes (T1-T9) and the rowconv probe (T11), in the order of
 # their TPU kernels
 MICRO_PROBES = (MP, MP2, MLG, MLG2, PT, RC)
@@ -145,9 +173,21 @@ def total_bound(parts):
     return sum(by.values()), max(by, key=by.get)
 
 
-def phase_kernels(cfg, model, scans, tfs):
-    """Kernel vs plain on every span conv of one full-window step, with the
-    bound of each (SC.span_conv_work on its bf16 operands)."""
+# the shape classes each mode's step must exercise
+NEED_CLASSES = {
+    "ref-exact": ["stem 5x5x5", "down 2x2x2 s2 +occ", "cat t-pruned",
+                  "unet 3x3x3 subm", "unet 3x3x3 s2p1", "conv_out",
+                  "span192", "span256", "span384"],
+    "incremental": ["stem 5x5x5 span192", "down 2x2x2 s2 +occ",
+                    "cat t-pruned", "unet 3x3x3 subm", "unet 3x3x3 s2p1",
+                    "conv_out", "span256", "span384"],
+}
+
+
+def phase_kernels(cfg, model, scans, tfs, mode="ref-exact"):
+    """Kernel vs plain on every span conv of one full-window step of the
+    pipeline in ``mode`` (as ``cfg`` selects), with the bound of each
+    (SC.span_conv_work on its bf16 operands)."""
     pipe = InferencePipeline(cfg, model, "cuda")
     W = cfg.model.n_past_steps
     for s, tf in zip(scans[:W - 1], tfs[:W - 1]):
@@ -231,10 +271,8 @@ def phase_kernels(cfg, model, scans, tfs):
         c["kernel_ms"] += t_full
         c["plain_ms"] += p_full
         c["max_err"] = max(c["max_err"], e_full, e32)
-    need = ["stem 5x5x5", "down 2x2x2 s2 +occ", "cat t-pruned",
-            "unet 3x3x3 subm", "unet 3x3x3 s2p1", "conv_out", "span192",
-            "span256", "span384"]
-    missing = [n for n in need if not any(n in c for c in classes)]
+    missing = [n for n in NEED_CLASSES[mode]
+               if not any(n in c for c in classes)]
     if missing:
         raise AssertionError(f"shape classes not exercised: {missing}")
     if not any(c["live_slots"] for c in classes.values()):
@@ -244,11 +282,17 @@ def phase_kernels(cfg, model, scans, tfs):
         c["bound_by"] = ("operations" if c.pop("bound_ops_ms")
                          > c["bound_ms"] / 2 else "bytes")
         c["share_of_bound"] = c["bound_ms"] / c["kernel_ms"]
-    print(f"kernel vs plain: {len(rec.calls)} span convs of one full-window "
-          f"step agree within {TOL} x max(1, |plain|) in bf16 and f32 "
+    print(f"kernel vs plain ({mode}): {len(rec.calls)} span convs of one "
+          f"full-window step agree within {TOL} x max(1, |plain|) in bf16 and f32 "
           f"(max abs err main {err['main']:.3g}, with slots {err['slots']:.3g};"
           f" bf16 max abs err / max(1, |plain|) {rel:.3g})")
     return err, times, classes, {k: total_bound(v) for k, v in bounds.items()}
+
+
+def incremental_config(cfg):
+    """``cfg`` in the fixed-frame incremental mode."""
+    return dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, incremental_stem=True))
 
 
 def small_config():
@@ -270,13 +314,21 @@ def small_config():
     )
 
 
-def phase_reference(device):
+def phase_reference(device, incremental=False):
     """Small input: the port on the card (kernel) against the port on the
     CPU (plain versions, which the CPU tests hold against the JAX
-    package), float32, 3 cropped scans of the same stream."""
+    package), float32, cropped scans of the same stream: 3 of the
+    ref-exact stream or, ``incremental``, 4 of the fixed-frame stream (the
+    window of 3 rolls once) through the incremental pipeline."""
     cfg = small_config()
     params, state = init_params(cfg, np.random.default_rng(1))
-    scans, tfs = make_stream(Config(), 3, seed=1)
+    if incremental:
+        mn = dataclasses.replace(cfg.model.motionnet, stem_scan_capacity=2048)
+        cfg = incremental_config(dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, motionnet=mn)))
+        scans, tfs, _ = make_fixed_frame_stream(Config(), 4, seed=1)
+    else:
+        scans, tfs = make_stream(Config(), 3, seed=1)
     rng = np.random.default_rng(1)
     crops = []
     for s in scans:
@@ -286,6 +338,8 @@ def phase_reference(device):
     for dev in (device, "cpu"):
         pipe = InferencePipeline(cfg, make_model(cfg, params, state, dev), dev)
         outs.append([pipe.push_scan(s, tf) for s, tf in zip(crops, tfs)])
+        if pipe.n_full_steps:
+            raise AssertionError(f"{pipe.n_full_steps} recovery steps")
     err = 0.0
     for g, r in zip(*outs):
         a, b = g["point_logits"].cpu(), r["point_logits"]
@@ -298,11 +352,11 @@ def phase_reference(device):
     return err
 
 
-def phase_main(cfg, model, scans, tfs):
-    pipe = InferencePipeline(cfg, model, "cuda")
-    W = cfg.model.n_past_steps
-    P = cfg.runtime.max_points_per_scan
-    SC.SPAN_KERNELS.reset_counts()
+def stream_gated(pipe, scans, tfs):
+    """Streams the scans through ``pipe``, checking each step's outputs.
+    Returns (step ms, per-step gates)."""
+    W = pipe.cfg.model.n_past_steps
+    P = pipe.cfg.runtime.max_points_per_scan
     step_ms, gates = [], []
     for i, (s, tf) in enumerate(zip(scans, tfs)):
         torch.cuda.synchronize()
@@ -326,8 +380,12 @@ def phase_main(cfg, model, scans, tfs):
             voxelizer_out_of_range=int(ovf["voxelizer_out_of_range"]),
             boxes=len(host["boxes"]),
         ))
-    launches = {"main": SC.SPAN_KERNELS.main_launches,
-                "slots": SC.SPAN_KERNELS.slot_launches}
+    return step_ms, gates
+
+
+def check_gates(gates, launches, W):
+    """The overflow gates and the launch counts of one streamed run.
+    Returns the full-window steps and the warm-up span overflow per plan."""
     # capacity drops are gated at every step, span overflow on the
     # full-window steps: the reference's plan budgets (kept literally) leave
     # a few uncovered rows on two warm-up windows of this stream, which the
@@ -343,6 +401,18 @@ def phase_main(cfg, model, scans, tfs):
         raise AssertionError("fewer than 3 full-window steps")
     warm = {g["step"]: g["span_overflow_per_plan"] for g in gates
             if g["span_overflow"]}
+    return full, warm
+
+
+def phase_main(cfg, model, scans, tfs):
+    pipe = InferencePipeline(cfg, model, "cuda")
+    W = cfg.model.n_past_steps
+    P = cfg.runtime.max_points_per_scan
+    SC.SPAN_KERNELS.reset_counts()
+    step_ms, gates = stream_gated(pipe, scans, tfs)
+    launches = {"main": SC.SPAN_KERNELS.main_launches,
+                "slots": SC.SPAN_KERNELS.slot_launches}
+    full, warm = check_gates(gates, launches, W)
     print(f"main path: {len(scans)} scans at the full default Config "
           f"(W={W}, P={P}); gates 0: dropped at every step, span_overflow at "
           f"every full-window step {full}; warm-up span_overflow per plan "
@@ -350,6 +420,115 @@ def phase_main(cfg, model, scans, tfs):
           f"{[g['voxelizer_out_of_range'] for g in gates]}, kept boxes "
           f"{[g['boxes'] for g in gates]}, kernel launches {launches}")
     return step_ms, gates, launches, full
+
+
+def phase_incremental(cfg, model):
+    """The fixed-frame incremental mode at ``cfg`` (the JAX package's bench
+    headline): kernel vs plain on every span conv of one full-window step,
+    then the fixed-frame stream through InferencePipeline.push_scan with
+    the launch counts set to 0 just before and read just after, the gates
+    of the main path and no recovery step, then the direct pipeline on the
+    same stream and on its points moved to voxel centres inside the
+    MotionNet crop, stepped beside
+    the incremental one (``versus_direct``): point logits within
+    INC_TOL_STREAM (INC_SHARE_STREAM of the points beyond 1e-3) on the
+    stream, and equal window site sets and logits within INC_TOL on the
+    voxel centres."""
+    icfg = incremental_config(cfg)
+    W = icfg.model.n_past_steps
+    scans, tfs, shifts = make_fixed_frame_stream(icfg, N_SCANS, seed=0)
+    err, _, classes, _ = phase_kernels(icfg, model, scans, tfs,
+                                       "incremental")
+    pipe = InferencePipeline(icfg, model, "cuda")
+    SC.SPAN_KERNELS.reset_counts()
+    step_ms, gates = stream_gated(pipe, scans, tfs)
+    launches = {"main": SC.SPAN_KERNELS.main_launches,
+                "slots": SC.SPAN_KERNELS.slot_launches}
+    if pipe.n_full_steps:
+        raise AssertionError(f"{pipe.n_full_steps} recovery steps on the "
+                             "fixed-frame stream")
+    full, warm = check_gates(gates, launches, W)
+    print(f"incremental path: {len(scans)} scans of the fixed-frame stream "
+          f"at the full default Config (W={W}, cache shifts "
+          f"{[s.tolist() for s in shifts]}), n_full_steps 0; gates 0: "
+          f"dropped at every step, span_overflow at every full-window step "
+          f"{full}; warm-up span_overflow per plan {warm or 'none'}; "
+          f"kernel launches {launches}")
+    crop = np.float32(icfg.model.motionnet.crop_range)
+    lo, hi = crop[:3], crop[3:]
+    centred = []
+    for sc in scans:
+        c = sc.copy()
+        c[:, :3] = lo + (np.floor((sc[:, :3] - lo) * np.float32(10.0))
+                         + np.float32(0.5)) / np.float32(10.0)
+        centred.append(c[((c[:, :3] >= lo) & (c[:, :3] < hi)).all(axis=1)])
+    vs_direct = {}
+    for name, stream in (("stream", scans), ("voxel centres", centred)):
+        rows = vs_direct[name] = versus_direct(icfg, cfg, model, stream, tfs)
+        worst = max(r["max_abs_err"] for r in rows)
+        share = max(r["points_over_1e_3"] / r["points"] for r in rows)
+        moved = [r["sites_only_direct"] + r["sites_only_incremental"]
+                 for r in rows]
+        print(f"incremental vs direct pipeline, bf16, {name}: point logits "
+              f"max abs err {worst:.3g}, per step "
+              f"{[round(r['max_abs_err'], 5) for r in rows]}; points over "
+              f"1e-3 {[r['points_over_1e_3'] for r in rows]}; window sites "
+              f"in one set only {moved}")
+        if name == "stream":
+            if worst > INC_TOL_STREAM or share > INC_SHARE_STREAM:
+                raise AssertionError(
+                    f"incremental vs direct on the stream: max abs err "
+                    f"{worst} (bound {INC_TOL_STREAM}), share of points over "
+                    f"1e-3 {share} (bound {INC_SHARE_STREAM})")
+        elif any(moved) or worst > INC_TOL:
+            raise AssertionError(
+                f"incremental vs direct at voxel centres: window sites in one "
+                f"set only {moved}, max abs err {worst} (tolerance "
+                f"{INC_TOL})")
+    return dict(step_ms=step_ms, gates=gates, launches=launches, full=full,
+                kernel_err=err, classes=classes, vs_direct=vs_direct)
+
+
+def window_keys(pipe):
+    """The sorted L1 site keys that the direct pipeline's last step built
+    from its window's points (as motionnet_forward builds them)."""
+    mc = pipe.cfg.model.motionnet
+    pts, num = pipe._buf["points"], pipe._buf["num_points"]
+    W, P = pts.shape[:2]
+    lo = torch.tensor(mc.crop_range[:3], dtype=pts.dtype, device=pts.device)
+    valid = ((torch.arange(P, device=pts.device)[None] < num[:, None])
+             & pipe._buf["scan_mask"][:, None])
+    c3 = torch.floor((pts[..., :3].reshape(-1, 3) - lo) * 10.0).to(
+        torch.int32)
+    tcol = torch.arange(W, dtype=torch.int32, device=pts.device)[:, None]
+    slab, _, _, _ = S.build_slab(c3, tcol.expand(W, P).reshape(-1),
+                                 valid.reshape(-1), mc.grid_size, W,
+                                 mc.site_capacities[0])
+    return slab.keys[slab.valid]
+
+
+def versus_direct(icfg, cfg, model, scans, tfs):
+    """The incremental and the direct pipeline stepped together over the
+    same scans: per step the point logits' difference and the window sites
+    that only one of the two site sets holds."""
+    inc = InferencePipeline(icfg, model, "cuda")
+    direct = InferencePipeline(cfg, model, "cuda")
+    rows = []
+    for s, tf in zip(scans, tfs):
+        a = inc.push_scan(s, tf)["point_logits"][:len(s)]
+        b = direct.push_scan(s, tf)["point_logits"][:len(s)]
+        kd = window_keys(direct)
+        ki = inc._buf["win"]["keys"]
+        ki = ki[ki != KEY_SENTINEL]
+        e = (a - b).abs()
+        rows.append(dict(
+            max_abs_err=float(e.max()), points=len(s),
+            points_over_1e_3=int((e > 1e-3).sum()),
+            sites_only_direct=int((~torch.isin(kd, ki)).sum()),
+            sites_only_incremental=int((~torch.isin(ki, kd)).sum())))
+    if inc.n_full_steps:
+        raise AssertionError(f"{inc.n_full_steps} recovery steps")
+    return rows
 
 
 def phase_probes():
@@ -501,14 +680,26 @@ def main() -> int:
 
     err, times, classes, bounds = phase_kernels(cfg, model, scans, tfs)
     ref_err = phase_reference(device)
+    inc_ref_err = phase_reference(device, incremental=True)
     print(f"small-input reference: card vs CPU point logits max abs err "
-          f"{ref_err:.3g} (tolerance 1e-3)")
+          f"{ref_err:.3g} ref-exact, {inc_ref_err:.3g} incremental (tolerance "
+          f"1e-3)")
     step_ms, gates, launches, full = phase_main(cfg, model, scans, tfs)
+    inc = phase_incremental(cfg, model)
 
     med = statistics.median(step_ms[i] for i in full)
     print(f"step time (first reading, not a benchmark): median {med:.1f} ms "
           f"over the {len(full)} full-window steps = {1e3 / med:.2f} scans/s "
           f"on {card}; all steps ms {[round(t, 1) for t in step_ms]}")
+    inc_med = statistics.median(inc["step_ms"][i] for i in inc["full"])
+    per_step = {k: v / N_SCANS for k, v in inc["launches"].items()}
+    print(f"incremental step time (first reading, not a benchmark): median "
+          f"{inc_med:.1f} ms over the {len(inc['full'])} full-window steps "
+          f"= {1e3 / inc_med:.2f} scans/s, beside the ref-exact step's "
+          f"{med:.1f} ms, on {card}; all steps ms "
+          f"{[round(t, 1) for t in inc['step_ms']]}; span-conv launches per "
+          f"step: incremental {per_step}, ref-exact "
+          f"{ {k: v / N_SCANS for k, v in launches.items()} }")
     probe_entries, probes = phase_probes()
     micro_entries, probes["micro"] = phase_micro()
     print(f"device_ms profiler sessions: {tools.SESSIONS['whole']} whole, "
@@ -521,7 +712,11 @@ def main() -> int:
          "launches": launches[key], "max_abs_err": err[key],
          "ms": times[key], "plain_ms": times[key + "_plain"],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-         "library_ms": None}
+         "library_ms": None,
+         # the incremental mode's main path: launches over its N_SCANS
+         # steps, and the largest error of its full-window step's convs
+         "launches_incremental": inc["launches"][key],
+         "max_abs_err_incremental": inc["kernel_err"][key]}
         for (name, rep), key in zip(KERNELS, ("main", "slots"))
     ] + probe_entries + micro_entries}
     if args.details:
@@ -530,8 +725,10 @@ def main() -> int:
         with open(args.details, "w") as fh:
             json.dump(dict(card=card, report=report, classes=classes,
                            step_ms=step_ms, gates=gates, ref_err=ref_err,
+                           incremental=inc, incremental_ref_err=inc_ref_err,
                            probes=probes), fh, indent=1)
-    for name, c in sorted(classes.items()):
+    for name, c in sorted(list(classes.items()) + [
+            ("(incremental) " + k, v) for k, v in inc["classes"].items()]):
         print(f"  class {name}: kernel {c['kernel_ms']:.3f} ms, bound "
               f"{c['bound_ms']:.4f} ms set by {c['bound_by']}, share of "
               f"bound {c['share_of_bound']:.4f}; {json.dumps(c)}")

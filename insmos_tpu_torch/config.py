@@ -156,7 +156,10 @@ class RuntimeConfig:
     conv_chunk: int = 65_536
     sparse_engine: str = "auto"
     data_axis: str = "data"
-    # fixed-frame stem reuse across window shifts (not ported yet)
+    # fixed-frame streaming: the window's site set and the stem's outputs
+    # are carried across steps and the stem runs on the new scan alone;
+    # needs every step's transform to be an integer-voxel translation
+    # (pipeline.fixed_frame_transform), else a full-stem recovery step runs
     incremental_stem: bool = False
 
 

@@ -6,8 +6,9 @@ The synthetic fixture the streaming runs use: 64 beams at elevations
 above the ground, a static world of walls and pillars plus car-sized
 moving boxes; rays return the nearest surface. Given the same generator
 state, both copies draw the same numbers in the same order, so their scans
-are bit-identical (``tests/test_torch_config.py``). ``make_stream`` turns
-them into the ref-exact stream the card runs use.
+are bit-identical (``tests/test_torch_config.py``). ``make_stream`` and
+``make_fixed_frame_stream`` turn them into the two streams of the JAX
+package's bench: ref-exact, and fixed-frame incremental (its headline).
 """
 
 from __future__ import annotations
@@ -172,6 +173,21 @@ def raycast_scan(
     return pts, moving
 
 
+def _raycast_steps(n_steps: int, seed: int):
+    """The streams' common generator: yields (step, ego xy, raw scan, rng)
+    for a moving ego (~11 m/s at 10 Hz) raycasting the fixture world. The
+    caller draws its permutation from ``rng`` before asking for the next
+    scan, so the draws come in the reference's order (raycast, then
+    permutation, per step)."""
+    rng = np.random.default_rng(seed)
+    world = _make_world(rng)
+    ego_speed = np.array([1.1, 0.05])
+    for w in range(n_steps):
+        ego = ego_speed * w
+        scan, _ = raycast_scan(world, ego, w, rng)
+        yield w, ego, scan, rng
+
+
 def make_stream(cfg, n_steps: int, seed: int = 0):
     """The ref-exact stream of the JAX package's bench.make_stream: a
     moving ego (~11 m/s) turning at 0.01 rad/step raycasts the fixture
@@ -179,15 +195,10 @@ def make_stream(cfg, n_steps: int, seed: int = 0):
     ``cfg.runtime.max_points_per_scan``, and each step's transform
     inv(pose_t) @ pose_{t-1} carries the real rotation. Returns (scans
     [(n_i, 4) float32], tfs [(4, 4) float32])."""
-    rng = np.random.default_rng(seed)
-    world = _make_world(rng)
-    ego_speed = np.array([1.1, 0.05])
     P = cfg.runtime.max_points_per_scan
     scans, tfs = [], []
     prev_pose = None
-    for w in range(n_steps):
-        ego = ego_speed * w
-        scan, _ = raycast_scan(world, ego, w, rng)
+    for w, ego, scan, rng in _raycast_steps(n_steps, seed):
         psi = 0.01 * w
         c, s = np.cos(psi), np.sin(psi)
         pose = np.eye(4)
@@ -202,3 +213,32 @@ def make_stream(cfg, n_steps: int, seed: int = 0):
         scans.append(scan_f[rng.permutation(len(scan_f))[:n]])
         tfs.append(tf)
     return scans, tfs
+
+
+def make_fixed_frame_stream(cfg, n_steps: int, seed: int = 0):
+    """The fixed-frame stream of the JAX package's bench.make_stream (its
+    headline, ``ref_exact=False``): the same ego without turning, each scan
+    re-expressed by ``pipeline.fixed_frame_transform`` in the voxel-snapped
+    odometry frame, then permuted and cut as in :func:`make_stream`. Each
+    step's transform is the snapped integer-voxel translation k * voxel.
+    Returns (scans [(n_i, 4) float32], tfs [(4, 4) float32], shifts [(3,)
+    int32], the cache shifts -k)."""
+    from ..pipeline import fixed_frame_transform
+
+    P = cfg.runtime.max_points_per_scan
+    vox = cfg.data.voxel_size[0]
+    scans, tfs, shifts = [], [], []
+    prev_snap = None
+    for _, ego, scan, rng in _raycast_steps(n_steps, seed):
+        pose = np.eye(4)
+        pose[:2, 3] = ego
+        scan_f, tf, prev_snap = fixed_frame_transform(
+            scan.astype(np.float32), pose, prev_snap, vox)
+        k = np.round(tf[:3, 3] / vox)
+        tf_snap = np.eye(4, dtype=np.float32)
+        tf_snap[:3, 3] = (k * vox).astype(np.float32)
+        n = min(len(scan_f), P)
+        scans.append(scan_f[rng.permutation(len(scan_f))[:n]])
+        tfs.append(tf_snap)
+        shifts.append((-k).astype(np.int32))
+    return scans, tfs, shifts

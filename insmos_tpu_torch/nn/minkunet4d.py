@@ -1,6 +1,5 @@
 """MotionNet: the 4D (x, y, z, t) sparse UNet over the scan window (port of
-insmos_tpu/nn/minkunet4d.py), ref-exact streaming inference on the span
-engine.
+insmos_tpu/nn/minkunet4d.py), streaming inference on the span engine.
 
 Structure (channels; kernels as (spatial, temporal)):
   stem    subm (5,1)            in -> 8
@@ -12,11 +11,14 @@ Structure (channels; kernels as (spatial, temporal)):
   up7     inverse (2,1)         16 -> 8   ; cat stem   -> 16; block8 -> 8
   final   1x1 conv (bias)        8 -> out (3 motion classes)
 
-Inference runs the full stem every step (the incremental stem cache is not
-ported yet), the t-pruning schedule (only the current scan's output is
+Inference runs the t-pruning schedule (only the current scan's output is
 consumed, so each tensor keeps a trailing slot window) and the decoder's
-spatial pruning onto reach-2 halos of the current scan. Plan budgets are
-the reference's literal values (PLAN_BUDGETS); the plans diverge otherwise.
+spatial pruning onto reach-2 halos of the current scan. The stem runs over
+the whole window every step (ref-exact mode) or, in the fixed-frame
+incremental mode, only over the new scan at T=1: the stem's t-kernel is 1,
+so a slot's output depends on its own scan alone and the previous step's
+outputs (the stem cache) are reused, shifted one slot. Plan budgets are the
+reference's literal values (PLAN_BUDGETS); the plans diverge otherwise.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..sparse.slab import (
     dilate_mask,
     gather_slots,
     linearize3,
+    maintain_window_slab,
     parent_index,
     site_grid,
     slice_slots,
@@ -69,6 +72,9 @@ PLAN_BUDGETS = {
              4: dict(span=256, slots=512, gwin=24, pairs=1024),
              8: dict(span=256, slots=384, gwin=24, pairs=512)},
     "stem": dict(span=256, slots=12288, gwin=64, pairs=4096),
+    # the incremental mode's T=1 stem plan over the new scan's own slab
+    # (minkunet4d.py:147-150)
+    "stem_scan": dict(span=192, slots=3072, gwin=40, pairs=2560),
     "dec": {1: dict(span=192, slots=2304, gwin=48, pairs=2048),
             2: dict(span=192, slots=1024, gwin=32, pairs=768),
             4: dict(span=192, slots=512, gwin=40, pairs=384)},
@@ -107,11 +113,78 @@ def _level_dims(dims3, factor):
     return tuple(-(-d // factor) for d in dims3)
 
 
-def motionnet_forward(p: MotionNet, cfg, points, point_valid):
+def _run_fresh_stem(p: MotionNet, cfg, c3_new, pv_new, dims1, stats, dtype):
+    """The stem over the NEW scan's own slab at T=1, whose site capacity
+    is ``stem_scan_capacity`` (a scan's voxels, not its points). Appends
+    the slab's point drops to stats["dropped"] and its plan's coverage
+    counter to stats["span_overflow"]. Returns (scan slab, point -> scan
+    site row or -1, the stem output on the scan slab)."""
+    scan_cap = cfg.model.motionnet.stem_scan_capacity
+    tcol = torch.zeros(c3_new.shape[:1], dtype=torch.int32,
+                       device=c3_new.device)
+    nslab, p2s, _, n_drop = build_slab(c3_new, tcol, pv_new, dims1, 1,
+                                       scan_cap)
+    stats["dropped"].append(n_drop)
+    nslab = nslab.replace_feats(0.5 * nslab.occ.to(torch.float32))
+    ntbl = make_span_plan(nslab.keys, nslab.coords, nslab.valid, _K3_STEM,
+                          in_dims=dims1, **PLAN_BUDGETS["stem_scan"])
+    stats["span_overflow"].append(ntbl.n_overflow)
+    fresh = subm_block_slab(p.stem, nslab, _K_STEM, ntbl, dtype=dtype)
+    return nslab, p2s, fresh
+
+
+def _incremental_stem(p: MotionNet, cfg, x: Slab, coords3, point_valid,
+                      dims1, stem_cache, stats, dtype, cache_shift=None):
+    """The stem output on a window slab built from the points: the previous
+    step's cached slots, key-matched onto this window's sites and shifted
+    one slot, plus the new scan's T=1 stem pass in slot W-1. ``cache_shift``
+    ((3,) int32) is the step's integer-voxel translation: a site at coords c
+    was at c + cache_shift in the previous frame; sites whose previous
+    coords leave the grid miss and get zero history."""
+    W, P = point_valid.shape
+    cap0 = x.capacity
+    C = p.stem.conv.w.shape[-1]
+    nslab, _, fresh = _run_fresh_stem(
+        p, cfg, coords3.reshape(W, P, 3)[W - 1], point_valid[W - 1], dims1,
+        stats, dtype)
+    scan_cap = cfg.model.motionnet.stem_scan_capacity
+
+    if cache_shift is None:
+        qkeys = x.keys
+    else:
+        qkeys = linearize3(x.coords + cache_shift.to(torch.int32)[None, :],
+                           dims1)
+        qkeys = torch.where(x.valid, qkeys, KEY_SENTINEL)
+    ckeys = stem_cache["keys"]
+    pos = _bisect(ckeys, qkeys).clamp(0, cap0 - 1).long()
+    hit = (ckeys[pos] == qkeys) & x.valid & (qkeys != KEY_SENTINEL)
+    rows = stem_cache["feats"][pos]
+    rows = torch.where(hit[:, None], rows, torch.zeros((), dtype=rows.dtype,
+                                                       device=rows.device))
+    merged = torch.cat([rows[:, C:], rows.new_zeros((cap0, C))], dim=1)
+    fpos = _bisect(nslab.keys, x.keys).clamp(0, scan_cap - 1).long()
+    fhit = (nslab.keys[fpos] == x.keys) & x.valid
+    fr = fresh.feats[fpos].to(merged.dtype)
+    merged[:, (W - 1) * C:] = torch.where(fhit[:, None], fr, 0.0)
+    out = x.replace_feats(merged)
+    return out.replace_feats(out.mask_feats())
+
+
+def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
+                      stem_cache=None, cache_shift=None, win_cache=None,
+                      emit_cache: bool = False):
     """points (W, P, 4+) pose-aligned window, point_valid (W, P).
 
     Returns (motion feats of the CURRENT scan (P, C) float32, stats with
-    "sites", "dropped" and "span_overflow" lists of 0-d tensors)."""
+    "sites", "dropped" and "span_overflow" lists of 0-d tensors).
+
+    ``stem_cache`` ({"keys": (cap0,), "feats": (cap0, W*C)}, the previous
+    step's) selects the fixed-frame incremental stem; with ``win_cache``
+    ({"keys": (cap0,), "occ": (cap0, W)}) too, the L1 window site set is
+    maintained from the previous step's (maintain_window_slab) instead of
+    built from the window's points. ``cache_shift`` is the step's
+    integer-voxel translation. Then, and with ``emit_cache``, stats also
+    carries this step's "stem_cache" and "win" for the next step."""
     mc = cfg.model.motionnet
     dtype = cfg.runtime.compute_dtype
     W, P = points.shape[:2]
@@ -121,13 +194,35 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid):
     stats = {"sites": [], "dropped": [], "span_overflow": []}
 
     lo = torch.tensor(mc.crop_range[:3], dtype=points.dtype, device=dev)
-    xyz = points[..., :3].reshape(W * P, 3)
-    coords3 = torch.floor((xyz - lo) * 10.0).to(torch.int32)  # 0.1 m voxels
-    tcol = torch.arange(W, dtype=torch.int32, device=dev)[:, None].expand(
-        W, P).reshape(W * P)
-    slab1, p2slot, n1, drop1 = build_slab(
-        coords3, tcol, point_valid.reshape(W * P), dims1, W, caps[0]
-    )
+    # the maintained window site set: the previous step's, shifted, rolled
+    # one slot and merged with the new scan's sites (slab.maintain_window_
+    # slab); the current points reach their rows through the scan slab
+    maintained = stem_cache is not None and win_cache is not None
+    if maintained:
+        C0 = p.stem.conv.w.shape[-1]
+        c3_new = torch.floor((points[W - 1, :, :3] - lo) * 10.0).to(
+            torch.int32)
+        nslab, p2s_scan, fresh_stem = _run_fresh_stem(
+            p, cfg, c3_new, point_valid[W - 1], dims1, stats, dtype)
+        shift = (cache_shift if cache_shift is not None
+                 else torch.zeros(3, dtype=torch.int32, device=dev))
+        keys1, coords1, occ1, stem_shifted, new_pos, n1, drop1 = (
+            maintain_window_slab(win_cache["keys"], win_cache["occ"],
+                                 stem_cache["feats"], nslab.keys,
+                                 nslab.valid, shift, dims1, W, C0, caps[0]))
+        slab1 = Slab(keys1, coords1, occ1,
+                     torch.zeros((caps[0], 0), dtype=torch.float32,
+                                 device=dev),
+                     keys1 != KEY_SENTINEL, dims1, W)
+        p2slot = None
+    else:
+        xyz = points[..., :3].reshape(W * P, 3)
+        coords3 = torch.floor((xyz - lo) * 10.0).to(torch.int32)  # 0.1 m
+        tcol = torch.arange(W, dtype=torch.int32, device=dev)[:, None].expand(
+            W, P).reshape(W * P)
+        slab1, p2slot, n1, drop1 = build_slab(
+            coords3, tcol, point_valid.reshape(W * P), dims1, W, caps[0]
+        )
     stats["sites"].append(n1)
     stats["dropped"].append(drop1)
     x = slab1.replace_feats(0.5 * slab1.occ.to(torch.float32))
@@ -155,7 +250,7 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid):
         reqs.append(dict(out_coords=nxt.coords, out_valid=nxt.valid,
                          kernel3=_K3_DOWN, stride3=_S2, pad3=_P0,
                          in_dims=dims[fin], bs=128, **B["down"][fout]))
-        if fin == 1:
+        if fin == 1 and stem_cache is None:
             reqs.append(dict(out_coords=s_in.coords, out_valid=s_in.valid,
                              kernel3=_K3_STEM, in_dims=dims[fin],
                              **B["stem"]))
@@ -210,9 +305,12 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid):
             dec_tbl[lvl] = make_span_plan(t.keys, t.coords, t.valid,
                                           _K3_BLOCK, in_dims=dims[lvl],
                                           bs=128, **B["dec"][lvl])
-    stats["span_overflow"] = [
-        t.n_overflow for t in [
-            tables["stem"], dec_tbl[1] if prune_dec else tables[1],
+    # the incremental stem's scan plan (maintained) came first; the
+    # un-maintained variant appends it last, at the stem below
+    stats["span_overflow"] += [
+        t.n_overflow for t in ([tables["stem"]] if stem_cache is None else [])
+        + [
+            dec_tbl[1] if prune_dec else tables[1],
             tables[2], tables[4], tables[8],
             down_tables[2], down_tables[4], down_tables[8],
         ] + ([dec_tbl[2], dec_tbl[4]] if prune_dec else [])
@@ -263,8 +361,27 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid):
         return y, out_t0
 
     # ---------------- encoder ----------------
-    out_stem = subm_block_slab(p.stem, x, _K_STEM, tables["stem"],
-                               dtype=dtype)
+    if maintained:
+        # cached slots 0..W-2 were re-rowed by maintain_window_slab; the new
+        # scan's stem output goes into slot W-1 at its merged rows. The
+        # cache keeps its own dtype (float32: the stem's BN output).
+        safe_new = torch.where(nslab.valid & (new_pos >= 0), new_pos,
+                               caps[0]).long()
+        col = stem_shifted.new_zeros((caps[0] + 1, C0))
+        col[safe_new] = fresh_stem.feats.to(col.dtype)
+        merged = stem_shifted.clone()
+        merged[:, (W - 1) * C0:] = col[:caps[0]]
+        out_stem = x.replace_feats(merged)
+        out_stem = out_stem.replace_feats(out_stem.mask_feats())
+    elif stem_cache is not None:
+        out_stem = _incremental_stem(p, cfg, x, coords3, point_valid, dims1,
+                                     stem_cache, stats, dtype, cache_shift)
+    else:
+        out_stem = subm_block_slab(p.stem, x, _K_STEM, tables["stem"],
+                                   dtype=dtype)
+    if stem_cache is not None or emit_cache:
+        stats["stem_cache"] = {"keys": x.keys, "feats": out_stem.feats}
+        stats["win"] = {"keys": slab1.keys, "occ": slab1.occ}
     y = subm_block_slab(p.down1, out_stem, _K_DOWN, down_tables[2],
                         out=slabs[2], dtype=dtype, with_occ=True)
     out_b1, _ = block("block1", y, 0, tables[2], "b1m", "b1o")
@@ -313,9 +430,16 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid):
         cur = gather_slots(out, p2slot, cout).reshape(W, P, cout)[W - 1]
     else:
         assert t_b8 == W - 1 and Tf == 1
-        p2s_cur = p2slot[(W - 1) * P:]
-        site_or_neg = torch.where(
-            p2s_cur >= 0, torch.div(p2s_cur, W, rounding_mode="floor"), -1)
+        if maintained:
+            # current points -> scan slab site -> merged window row
+            sp = p2s_scan.clamp(0, new_pos.shape[0] - 1).long()
+            mrow = new_pos[sp]
+            site_or_neg = torch.where((p2s_scan >= 0) & (mrow >= 0), mrow, -1)
+        else:
+            p2s_cur = p2slot[(W - 1) * P:]
+            site_or_neg = torch.where(
+                p2s_cur >= 0, torch.div(p2s_cur, W, rounding_mode="floor"),
+                -1)
         if prune_dec:
             # full-union site rows -> pruned-halo rows by key match
             cap0 = slab1.capacity

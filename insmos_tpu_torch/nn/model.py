@@ -34,16 +34,23 @@ class InsMOSModel(nn.Module):
         return self.forward_tail(self.forward_motion(sample))
 
     @torch.inference_mode()
-    def forward_motion(self, sample: dict) -> dict:
-        """MotionNet + voxelize of the current scan."""
+    def forward_motion(self, sample: dict, *, stem_cache=None,
+                       cache_shift=None, win_cache=None,
+                       emit_cache: bool = False) -> dict:
+        """MotionNet + voxelize of the current scan. The stem cache
+        arguments select the fixed-frame incremental stem (see
+        minkunet4d.motionnet_forward); the step's new "stem_cache" and
+        "win" are then returned too."""
         cfg = self.cfg
         points = sample["points"]
         W, P = points.shape[:2]
         point_valid = (torch.arange(P, device=points.device)[None, :]
                        < sample["num_points"][:, None]) & \
             sample["scan_mask"][:, None]
-        motion_cur, stats = motionnet_forward(self.motion, cfg, points,
-                                              point_valid)
+        motion_cur, stats = motionnet_forward(
+            self.motion, cfg, points, point_valid, stem_cache=stem_cache,
+            cache_shift=cache_shift, win_cache=win_cache,
+            emit_cache=emit_cache)
         current = points[W - 1]
         cur_valid = point_valid[W - 1]
         vox, p2v = voxelize_points(
@@ -52,12 +59,16 @@ class InsMOSModel(nn.Module):
             cfg.data.grid_size, cfg.model.unet_capacities[0],
             cfg.model.max_points_per_voxel,
         )
-        return {
+        inter = {
             "vox": vox, "p2v": p2v, "motion_cur": motion_cur,
             "current": current, "cur_valid": cur_valid,
             "motion_dropped": torch.stack(stats["dropped"]),
             "motion_span_overflow": list(stats["span_overflow"]),
         }
+        for k in ("stem_cache", "win"):
+            if k in stats:
+                inter[k] = stats[k]
+        return inter
 
     @torch.inference_mode()
     def forward_tail(self, inter: dict) -> dict:

@@ -7,9 +7,10 @@ non-occupied (site, t) slots. Everything here keeps the reference's static
 capacities: no operation has a data-dependent output shape, so nothing
 synchronises with the host.
 
-The window engine (window_tables / window_conv) and the incremental-mode
-``maintain_window_slab`` are not ported yet; the span engine
-(span_conv.py) carries every conv of the inference path.
+The window engine (window_tables / window_conv) is not ported; the span
+engine (span_conv.py) carries every conv of the inference path.
+``maintain_window_slab`` keeps the fixed-frame streaming mode's window site
+set from one step to the next.
 """
 
 from __future__ import annotations
@@ -155,6 +156,64 @@ def build_slab(coords3, tcol, point_valid, dims: Sequence[int], T: int,
         valid=valid, dims=tuple(dims), T=T,
     )
     return slab, p2slot, n_sites, n_dropped
+
+
+def maintain_window_slab(prev_keys, prev_occ, prev_stem, nslab_keys,
+                         nslab_valid, shift, dims, W: int, C: int,
+                         capacity: int):
+    """The fixed-frame streaming window's L1 site set, from the previous
+    step's: its keys shifted by the integer-voxel translation (``shift``
+    (3,) int32: previous-frame coords = new-frame coords + shift; sites
+    leaving the grid are dropped), its occupancy rolled one slot (sites
+    left empty are dropped) and the new scan's sorted site keys merged in
+    by one stable (cap0 + scan_cap)-row sort: old rows come first in the
+    concat, so they win key ties.
+
+    Returns (site_keys, coords, occ, stem_shifted, new_pos, n_sites,
+    n_dropped): stem_shifted holds the stem cache's slots 0..W-2 re-rowed
+    to the new site order (slot W-1 zero: the caller writes the new scan's
+    stem output at rows new_pos[i] for its slab row i, -1 = dropped)."""
+    dev = prev_keys.device
+    cap0 = prev_keys.shape[0]
+    pc = delinearize3(torch.where(prev_keys != KEY_SENTINEL, prev_keys, 0),
+                      dims)
+    shifted = linearize3(pc - shift.to(torch.int32)[None, :], dims)
+    occ_roll = torch.cat(
+        [prev_occ[:, 1:], torch.zeros((cap0, 1), dtype=torch.bool,
+                                      device=dev)], dim=1)
+    keep_old = ((prev_keys != KEY_SENTINEL) & (shifted != KEY_SENTINEL)
+                & occ_roll.any(dim=1))
+    k_old = torch.where(keep_old, shifted, KEY_SENTINEL)
+    k_new = torch.where(nslab_valid, nslab_keys, KEY_SENTINEL)
+
+    sv, spl = torch.sort(torch.cat([k_old, k_new]), stable=True)
+    site_keys, coords, valid, first, rank, n_sites = _sites_of_sorted(
+        sv, capacity, dims)
+    in_cap = (sv != KEY_SENTINEL) & (rank < capacity)
+    n_dropped = torch.clamp(n_sites - capacity, min=0)
+
+    # per-source destination rows: the sort's inverse permutation, by a
+    # scatter (spl is a permutation, so every row is written once)
+    dest = torch.empty_like(sv)
+    dest[spl] = torch.where(in_cap, rank, -1)
+    old_pos, new_pos = dest[:cap0], dest[cap0:]
+
+    # occupancy and the rolled stem cache, re-rowed by scatter onto unique
+    # rows; everything dropped lands on the extra row ``capacity``
+    safe_old = torch.where(keep_old & (old_pos >= 0), old_pos,
+                           capacity).to(torch.int64)
+    occ = torch.zeros((capacity + 1, W), dtype=torch.bool, device=dev)
+    occ[safe_old] = occ_roll
+    occ[:, W - 1] = False
+    new_rows = torch.where(nslab_valid & (new_pos >= 0), new_pos,
+                           capacity).to(torch.int64)
+    occ[new_rows, W - 1] = True
+    stem_rolled = torch.cat([prev_stem[:, C:], prev_stem.new_zeros((cap0, C))],
+                            dim=1)
+    stem_shifted = prev_stem.new_zeros((capacity + 1, W * C))
+    stem_shifted[safe_old] = stem_rolled
+    return (site_keys, coords, occ[:capacity], stem_shifted[:capacity],
+            new_pos, n_sites, n_dropped)
 
 
 def slab_from_sparse(x) -> Slab:

@@ -42,6 +42,42 @@ def test_port_imports_no_jax():
     assert "modules []" in res.stdout
 
 
+_INCREMENTAL = r"""
+import dataclasses, sys
+sys.modules["jax"] = None
+sys.modules["insmos_tpu"] = None
+import numpy as np
+import chip_smoke
+from insmos_tpu_torch.config import Config
+from insmos_tpu_torch.data.hdl64 import make_fixed_frame_stream
+from insmos_tpu_torch.pipeline import InferencePipeline
+from insmos_tpu_torch.utils.params import init_params, make_model
+cfg = chip_smoke.incremental_config(Config().tiny(points=512, max_voxels=1024))
+cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                         n_past_steps=2))
+p, s = init_params(cfg, np.random.default_rng(0))
+pipe = InferencePipeline(cfg, make_model(cfg, p, s, "cpu"), "cpu")
+scans, tfs, _ = make_fixed_frame_stream(cfg, 2)
+for sc, tf in zip(scans, tfs):
+    out = pipe.push_scan(sc, tf)
+assert pipe.n_full_steps == 0 and "stem_cache" in pipe._buf
+assert bool(out["point_logits"].isfinite().all())
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "insmos_tpu")
+       and sys.modules[m]]
+print("incremental ok", bad)
+assert not bad, bad
+"""
+
+
+def test_incremental_pipeline_runs_without_jax():
+    """The incremental mode's pipeline, fixed-frame stream and chip_smoke's
+    configs, with jax and the JAX package blocked."""
+    res = subprocess.run([sys.executable, "-c", _INCREMENTAL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "incremental ok []" in res.stdout
+
+
 def _leaves(tree):
     return jax.tree_util.tree_flatten_with_path(tree)
 

@@ -1,8 +1,9 @@
 """The CUDA span-conv kernel vs its plain PyTorch version (needs the card).
 
 Every shape class of the inference path, at small sizes: the 5^3 stem
-(T=10, cin=1), the 2^3 stride-2 down convs with the occupancy part, the
-3^4 blocks with cat parts and t-pruned rectangular bands, the UNet's T=1
+(T=10, cin=1) and the incremental mode's T=1 stem over one scan, the 2^3
+stride-2 down convs with the occupancy part, the 3^4 blocks with cat parts
+and t-pruned rectangular bands, the UNet's T=1
 subm and stride-2/pad-1 convs, the z-only (1,1,3) conv_out, spans 192,
 256 and 384, plus a narrow-span plan that forces coverage overflow.
 
@@ -50,6 +51,10 @@ def _slab(rng, dev, n, dims, T, cin, cap):
 # name, dims, T, kernel4, conv kind, span, slots/gwin/pairs/bs
 CASES = [
     ("stem", (64, 48, 16), 10, (5, 5, 5, 1), "subm", 256, (512, 16, 256)),
+    # the incremental mode's T=1 stem over one scan's slab, at its literal
+    # budgets (nn/minkunet4d.py PLAN_BUDGETS["stem_scan"])
+    ("stem_scan", (96, 80, 20), 1, (5, 5, 5, 1), "subm", 192,
+     (3072, 40, 2560)),
     ("down_occ", (64, 48, 16), 10, (2, 2, 2, 1), "down", 256, (256, 8, 256)),
     ("block_cat_tprune", (48, 40, 12), 6, (3, 3, 3, 3), "cat", 192,
      (256, 16, 256)),
@@ -66,7 +71,7 @@ def _run_case(case, dev, dtype, seed=0):
     name, dims, T, kernel, kind, span, budget = case
     slots, gwin, pairs, bs = budget + (128,) * (4 - len(budget))
     rng = np.random.default_rng(seed)
-    cin, cout = (1, 8) if name == "stem" else (6, 5)
+    cin, cout = (1, 8) if name.startswith("stem") else (6, 5)
     x = _slab(rng, dev, 3000, dims, T, cin, 4096)
     k3 = kernel[:3]
     stride, pad, out, odims = (1, 1, 1), None, x, dims

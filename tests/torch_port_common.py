@@ -103,3 +103,28 @@ def perturb_bn(state_np, seed: int = 0):
 
     walk(st)
     return st
+
+
+def fixed_frame_crop_stream(n_scans: int, seed: int = 0, half: float = 6.6,
+                            max_points: int = 2048):
+    """A small crop of the HDL-64E raycast fixture for the fixed-frame
+    incremental mode: the ego moves as in bench.make_stream (1.1 m and
+    0.05 m per step, no turn), each scan is in its sensor frame, cropped to
+    |x|, |y| < half and subsampled to max_points. Returns (scans, poses);
+    pipeline.fixed_frame_transform turns them into the fixed frame, where
+    each step shifts the window by 11 voxels in x (and 0 or 1 in y)."""
+    from insmos_tpu.data.hdl64 import _make_world, raycast_scan
+
+    rng = np.random.default_rng(seed)
+    world = _make_world(rng)
+    scans, poses = [], []
+    for w in range(n_scans):
+        ego = np.array([1.1, 0.05]) * w
+        scan, _ = raycast_scan(world, ego, w, rng)
+        keep = (np.abs(scan[:, 0]) < half) & (np.abs(scan[:, 1]) < half)
+        sc = scan[keep]
+        scans.append(sc[rng.permutation(len(sc))[:max_points]])
+        pose = np.eye(4)
+        pose[:2, 3] = ego
+        poses.append(pose)
+    return scans, np.stack(poses)
