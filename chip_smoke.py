@@ -16,7 +16,14 @@ The incremental phase does the same for the fixed-frame incremental mode
 site set and stem outputs carried across steps, the stem at T=1 on the new
 scan), with the kernels held against plain on every span conv of one of its
 full-window steps and its point logits against the direct pipeline's on
-the same stream. Then it runs the
+the same stream. The CLI phase runs the inference CLIs through their
+entry points: predict_mos on two KITTI-format sequences of the fixture
+(ref-exact, and --fixed-frame) at the full default Config, in bf16 and
+float32, with the gates, the span-conv launches and scans/s, each step
+held against the committed JAX record
+(tests/torch_goldens/stream_record.npz, tools/stream_record.py), the
+float32 runs repeated bit for bit; then refine, and evaluate_mos on a
+synthetic sequence. Then it runs the
 span-conv design probes (insmos_tpu_torch.tools.probe_extract, with and
 without --production, and probe_dotshapes) at their full case lists, each
 kernel held against its plain version, and last the micro probes (T1-T9:
@@ -41,16 +48,21 @@ import importlib.metadata
 import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from insmos_tpu_torch import kernels, setup_device, tools
+from insmos_tpu_torch.cli import evaluate_mos, predict_mos, refine
 from insmos_tpu_torch.config import Config
+from insmos_tpu_torch.data.kitti import load_files, read_point_cloud
+from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
 from insmos_tpu_torch.data.hdl64 import make_fixed_frame_stream, make_stream
 from insmos_tpu_torch.pipeline import InferencePipeline
 from insmos_tpu_torch.sparse import slab as S
@@ -66,6 +78,8 @@ from insmos_tpu_torch.tools import probe_dotshapes as PD
 from insmos_tpu_torch.tools import probe_extract as PE
 from insmos_tpu_torch.tools import probe_pallas_rowconv as RC
 from insmos_tpu_torch.tools import probe_tala as PT
+from insmos_tpu_torch.tools import stream_record as SR
+from insmos_tpu_torch.utils.checkpoint import save_checkpoint_from_trees
 from insmos_tpu_torch.utils.params import init_params, make_model
 
 N_SCANS = 12
@@ -94,6 +108,9 @@ TOL = 5e-4
 INC_TOL = 5e-3
 INC_TOL_STREAM = 0.25
 INC_SHARE_STREAM = 0.05
+# span-conv launches a step of the main path in both modes (MotionNet and
+# UNet: every subm and strided sparse conv)
+SPAN_CONVS_PER_STEP = 46
 # the micro probes (T1-T9) and the rowconv probe (T11), in the order of
 # their TPU kernels
 MICRO_PROBES = (MP, MP2, MLG, MLG2, PT, RC)
@@ -352,6 +369,20 @@ def phase_reference(device, incremental=False):
     return err
 
 
+def step_gates(i, W, out):
+    """The overflow gates and the kept-box count of step ``i`` of a
+    streamed run of window ``W`` from its outputs ``out``."""
+    ovf = {k: v.cpu() for k, v in out["overflow"].items()}
+    return dict(
+        step=i, window=min(i + 1, W),
+        span_overflow=int(ovf["span_overflow"].sum()),
+        span_overflow_per_plan=ovf["span_overflow"].tolist(),
+        dropped=int(ovf["motion_dropped"].sum() + ovf["unet_dropped"]
+                    + ovf["voxelizer_capacity_dropped"]),
+        voxelizer_out_of_range=int(ovf["voxelizer_out_of_range"]),
+        boxes=int(out["box_mask"].sum()))
+
+
 def stream_gated(pipe, scans, tfs):
     """Streams the scans through ``pipe``, checking each step's outputs.
     Returns (step ms, per-step gates)."""
@@ -363,7 +394,7 @@ def stream_gated(pipe, scans, tfs):
         t0 = time.perf_counter()
         out = pipe.push_scan(s, tf)
         host = InferencePipeline.fetch(out, len(s))
-        ovf = {k: v.cpu() for k, v in out["overflow"].items()}
+        gates.append(step_gates(i, W, out))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if out["point_logits"].shape != (P, 3):
@@ -371,15 +402,6 @@ def stream_gated(pipe, scans, tfs):
         for k in ("point_logits", "boxes", "scores"):
             if not np.isfinite(host[k]).all():
                 raise AssertionError(f"step {i}: non-finite {k}")
-        gates.append(dict(
-            step=i, window=min(i + 1, W),
-            span_overflow=int(ovf["span_overflow"].sum()),
-            span_overflow_per_plan=ovf["span_overflow"].tolist(),
-            dropped=int(ovf["motion_dropped"].sum() + ovf["unet_dropped"]
-                        + ovf["voxelizer_capacity_dropped"]),
-            voxelizer_out_of_range=int(ovf["voxelizer_out_of_range"]),
-            boxes=len(host["boxes"]),
-        ))
     return step_ms, gates
 
 
@@ -529,6 +551,196 @@ def versus_direct(icfg, cfg, model, scans, tfs):
     if inc.n_full_steps:
         raise AssertionError(f"{inc.n_full_steps} recovery steps")
     return rows
+
+
+def cli_run(ckpt, root, out, seq, fixed):
+    """One predict_mos run through its entry point, on the card, over one
+    sequence. Returns (its stats, the captured steps' outputs)."""
+    argv = ["--ckpt", ckpt, "--data_path", root, "--sequences", str(seq),
+            "--out", out] + (["--fixed-frame"] if fixed else [])
+    with SR.capturing(predict_mos) as steps:
+        stats = predict_mos.main(argv)
+    return stats, steps
+
+
+def check_artifacts(root, pred_root, seq, refined=None):
+    """Every scan of the sequence has its three artifacts in the
+    reference's formats (and, with ``refined``, its refined labels)."""
+    ss = f"{seq:02d}"
+    sub = os.path.join("sequences", ss, "predictions")
+    scans = load_files(os.path.join(root, ss, "velodyne"))
+    for i, f in enumerate(scans):
+        n = len(read_point_cloud(f))
+        name = f"{i:06d}"
+        lab = np.fromfile(os.path.join(pred_root, "mos_preb", sub,
+                                       name + ".label"), np.int32)
+        conf = np.load(os.path.join(pred_root, "confidence", sub,
+                                    name + ".npy"))
+        box = np.load(os.path.join(pred_root, "bbox_preb", sub, name + ".npy"),
+                      allow_pickle=True).item()
+        ok = (len(lab) == n and set(np.unique(lab).tolist()) <= {0, 9, 251}
+              and conf.dtype == np.float64 and conf.shape == (n, 2)
+              and bool(np.isfinite(conf).all())
+              and sorted(box) == ["pred_boxes", "pred_labels", "pred_scores"]
+              and box["pred_boxes"].dtype == np.float32
+              and box["pred_boxes"].shape[1:] == (7,)
+              and box["pred_scores"].dtype == np.float32
+              and box["pred_labels"].dtype == np.int64)
+        if refined is not None:
+            r = np.fromfile(os.path.join(refined, "mos_preb", sub,
+                                         name + ".label"), np.int32)
+            ok = ok and len(r) == n and set(np.unique(r).tolist()) <= {
+                0, 9, 251}
+        if not ok:
+            raise AssertionError(f"sequence {ss} scan {name}: artifacts not "
+                                 "in the reference's formats")
+    return len(scans)
+
+
+def phase_cli(card):
+    """The inference CLIs through their entry points on the card.
+
+    1. The main path of this slice: both fixture sequences (ref-exact, and
+       the straight-ego stream that ``--fixed-frame`` frames itself) at the
+       full default Config, written through the port's own code, a port
+       checkpoint of the JAX record's numpy weights, ``predict_mos`` on
+       each in bf16 (the default) and in float32, with the span-kernel
+       launch counts set to 0 just before each run and read just after:
+       gates of the main path, no recovery step on the fixed-frame stream,
+       46 span-conv launches a step, the artifacts in the reference's
+       formats, scans/s per sequence; every step held against the
+       committed JAX record (``tools/stream_record.py``) within
+       ``stream_record.TOLERANCES``, every counter equal. The float32 run
+       of each sequence is made twice and must repeat bit for bit.
+    2. ``refine`` over what the bf16 runs wrote.
+    3. ``predict_mos``, ``refine`` and ``evaluate_mos`` on a synthetic
+       sequence with labels.
+    Any failed comparison raises after the readings are printed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase_cli_", dir=os.path.join(here, "runs"))
+    failures = []
+    try:
+        rcfg, meta, record = SR.load_record(os.path.join(here, SR.RECORD))
+        cfg = Config()
+        if dataclasses.replace(rcfg, runtime=dataclasses.replace(
+                rcfg.runtime, compute_dtype=cfg.runtime.compute_dtype)) != cfg:
+            raise AssertionError("the JAX record is not at the full default "
+                                 "Config")
+        W = cfg.model.n_past_steps
+        root = os.path.join(work, "kitti")
+        SR.write_sequences(root, cfg, meta["n_scans"], meta["seed"])
+        params, state = init_params(cfg, np.random.default_rng(0))
+        parity, runs, repeat = {}, {}, {}
+        launches = {"main": 0, "slots": 0}
+        for route in ("bfloat16", "float32"):
+            cfg_r = dataclasses.replace(cfg, runtime=dataclasses.replace(
+                cfg.runtime, compute_dtype=route))
+            ckpt = os.path.join(work, f"ckpt_{route}")
+            save_checkpoint_from_trees(ckpt, cfg_r, params, state)
+            out = os.path.join(work, f"preb_{route}")
+            pred_root = os.path.join(out, cfg_r.experiment_id)
+            for name, (seq, fixed) in SR.SEQUENCES.items():
+                key = f"{route} {name}"
+                SC.SPAN_KERNELS.reset_counts()
+                stats, steps = cli_run(ckpt, root, out, seq, fixed)
+                n_launch = SC.SPAN_KERNELS.main_launches
+                n_slot = SC.SPAN_KERNELS.slot_launches
+                if route == cfg.runtime.compute_dtype:
+                    launches["main"] += n_launch
+                    launches["slots"] += n_slot
+                per = stats["per_sequence"][0]
+                gates = [step_gates(i, W, o) for i, (o, _) in enumerate(steps)]
+                rows = SR.summarize(steps, pred_root, seq)
+                del steps
+                runs[key] = dict(scans=per["scans"], seconds=per["seconds"],
+                                 scans_per_s=per["scans"] / per["seconds"],
+                                 n_full_steps=per["n_full_steps"],
+                                 gates=gates, launches=n_launch)
+                try:
+                    full, warm = check_gates(
+                        gates, {"main": n_launch, "slots": n_slot}, W)
+                except AssertionError as e:
+                    failures.append(f"{key}: {e}")
+                    full, warm = [], {}
+                if n_launch != SPAN_CONVS_PER_STEP * len(rows):
+                    failures.append(f"{key}: {n_launch} span-conv launches "
+                                    f"over {len(rows)} steps")
+                if per["n_full_steps"]:
+                    failures.append(f"{key}: {per['n_full_steps']} recovery "
+                                    "steps")
+                check_artifacts(root, pred_root, seq)
+                res = SR.compare(record[name], rows, W, route)
+                parity[key] = res
+                failures += [f"{key}: {f}" for f in res["failures"]]
+                print(f"cli, full default Config, {key}: {per['scans']} scans "
+                      f"in {per['seconds']:.2f} s = "
+                      f"{runs[key]['scans_per_s']:.3f} scans/s on {card} (the "
+                      f"CLI's own clock: scan reads, steps, artifact writes); "
+                      f"gates 0 at every step (dropped) and full-window step "
+                      f"{full} (span_overflow); warm-up span_overflow per "
+                      f"plan {warm or 'none'}; n_full_steps "
+                      f"{per['n_full_steps']}; span-conv launches {n_launch}")
+                print(f"  vs the JAX record: {res['compared']} of {len(rows)} "
+                      f"steps compared, point logits max abs err "
+                      f"{res['max_abs']:.3g}, share over 1e-3 "
+                      f"{res['share_over_1e_3']:.3g}, kept boxes "
+                      f"{[s.get('boxes_got') for s in res['steps']]}, of the "
+                      f"record's unmatched "
+                      f"{[s.get('boxes_unmatched') for s in res['steps']]} "
+                      f"(matched max abs {res['box_abs']:.3g}), label count "
+                      f"changes {[s.get('count_diff') for s in res['steps']]},"
+                      f" counters equal "
+                      f"{all(s.get('counters_equal', True) for s in res['steps'])}"
+                      f", tolerances {SR.TOLERANCES[route]}; "
+                      f"{len(res['failures'])} failures")
+                if route == "float32":
+                    _, again = cli_run(ckpt, root, out, seq, fixed)
+                    rows2 = SR.summarize(again, pred_root, seq)
+                    del again
+                    same = all(np.array_equal(a[k], b[k]) for a, b in zip(
+                        rows, rows2) for k in a)
+                    repeat[name] = same
+                    if not same:
+                        failures.append(f"{key}: a second run differs")
+                    print(f"  float32 run repeated: equal bit for bit {same}")
+
+        # 2. refine over the main path's output
+        pred_root = os.path.join(work, f"preb_{cfg.runtime.compute_dtype}",
+                                 cfg.experiment_id)
+        refined = os.path.join(work, "preb_refine")
+        refine.main(["--data_path", root, "--pred", pred_root, "--out",
+                     refined, "--sequences"] + [str(q) for q, _ in
+                                                SR.SEQUENCES.values()])
+        for seq, _ in SR.SEQUENCES.values():
+            check_artifacts(root, pred_root, seq, refined)
+
+        # 3. evaluate_mos on a sequence with labels
+        ckpt = os.path.join(work, f"ckpt_{cfg.runtime.compute_dtype}")
+        syn = os.path.join(work, "synthetic")
+        write_synthetic_sequence(syn, seq=8, n_scans=14, seed=0)
+        syn_out = os.path.join(work, "preb_syn")
+        cli_run(ckpt, syn, syn_out, 8, False)
+        syn_pred = os.path.join(syn_out, cfg.experiment_id)
+        syn_ref = os.path.join(work, "preb_syn_refine")
+        refine.main(["--data_path", syn, "--pred", syn_pred, "--out", syn_ref,
+                     "--sequences", "8"])
+        n_syn = check_artifacts(syn, syn_pred, 8, syn_ref)
+        ious = {k: evaluate_mos.evaluate(syn, os.path.join(p, "mos_preb"), [8])
+                for k, p in (("predict", syn_pred), ("refine", syn_ref))}
+        if not all(0.0 <= v <= 1.0 for r in ious.values() for v in r.values()):
+            failures.append(f"evaluate_mos: {ious}")
+        n_main = sum(r["scans"] for k, r in runs.items()
+                     if k.startswith(cfg.runtime.compute_dtype))
+        print(f"cli: refine rewrote {n_main} full-config scans and {n_syn} "
+              f"synthetic scans; evaluate_mos on the synthetic sequence "
+              f"(random weights): {ious}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        raise AssertionError("phase_cli: " + " | ".join(failures))
+    return dict(parity=parity, runs=runs, repeat=repeat, launches=launches,
+                evaluate=ious)
 
 
 def phase_probes():
@@ -686,6 +898,7 @@ def main() -> int:
           f"1e-3)")
     step_ms, gates, launches, full = phase_main(cfg, model, scans, tfs)
     inc = phase_incremental(cfg, model)
+    cli = phase_cli(card)
 
     med = statistics.median(step_ms[i] for i in full)
     print(f"step time (first reading, not a benchmark): median {med:.1f} ms "
@@ -716,7 +929,10 @@ def main() -> int:
          # the incremental mode's main path: launches over its N_SCANS
          # steps, and the largest error of its full-window step's convs
          "launches_incremental": inc["launches"][key],
-         "max_abs_err_incremental": inc["kernel_err"][key]}
+         "max_abs_err_incremental": inc["kernel_err"][key],
+         # this slice's main path: predict_mos over both full-config
+         # sequences
+         "launches_cli": cli["launches"][key]}
         for (name, rep), key in zip(KERNELS, ("main", "slots"))
     ] + probe_entries + micro_entries}
     if args.details:
@@ -726,6 +942,7 @@ def main() -> int:
             json.dump(dict(card=card, report=report, classes=classes,
                            step_ms=step_ms, gates=gates, ref_err=ref_err,
                            incremental=inc, incremental_ref_err=inc_ref_err,
+                           cli=cli,
                            probes=probes), fh, indent=1)
     for name, c in sorted(list(classes.items()) + [
             ("(incremental) " + k, v) for k, v in inc["classes"].items()]):

@@ -4,14 +4,15 @@ The dataclasses, fields and defaults are those of the JAX package, so a
 config built on either side holds the same values
 (``tests/test_torch_config.py`` checks ``dataclasses.asdict`` of both).
 Every capacity is a fixed array size: overflow is counted and gated, never
-silent. The YAML and dict loaders are not carried over yet; they come with
-the ``predict_mos`` entry point.
+silent. ``Config.from_yaml`` reads both this package's flat YAML and the
+reference's nested config.yaml schema; PyYAML is imported only there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -171,6 +172,119 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
+    # ------------------------------------------------------------------ io
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Config":
+        """Inverse of :meth:`to_dict` (lists become tuples); fields that
+        ``d`` lacks keep their defaults."""
+        def build(tp, val):
+            if dataclasses.is_dataclass(tp) and isinstance(val, dict):
+                defaults = tp()
+                kw = {
+                    f.name: build(type(getattr(defaults, f.name)), val[f.name])
+                    if dataclasses.is_dataclass(getattr(defaults, f.name))
+                    else (tuple(val[f.name]) if isinstance(val[f.name], list)
+                          else val[f.name])
+                    for f in dataclasses.fields(tp)
+                    if f.name in val
+                }
+                return dataclasses.replace(defaults, **kw)
+            if isinstance(val, list):
+                return tuple(val)
+            return val
+
+        return build(cls, d)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "Config":
+        import yaml
+
+        with open(path) as fh:
+            raw = yaml.safe_load(fh)
+        if "MODEL" in raw or "DATA" in raw:
+            return cls.from_reference_dict(raw)
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_reference_dict(cls, raw: dict[str, Any]) -> "Config":
+        """Build from the reference's nested config.yaml schema."""
+        d = raw.get("DATA", {})
+        m = raw.get("MODEL", {})
+        t = raw.get("TRAIN", {})
+        head = m.get("DENSE_HEAD", {})
+        ta = head.get("TARGET_ASSIGNER_CONFIG", {})
+        lw = head.get("LOSS_CONFIG", {}).get("LOSS_WEIGHTS", {})
+        pp = m.get("POST_PROCESSING", {})
+        nms = pp.get("NMS_CONFIG", {})
+        b2 = m.get("BACKBONE_2D", {})
+        split = d.get("SPLIT", {})
+        base = cls()
+        return cls(
+            experiment_id=raw.get("EXPERIMENT", {}).get("ID", base.experiment_id),
+            data=DataConfig(
+                point_cloud_range=tuple(d.get("POINT_CLOUD_RANGE",
+                                              base.data.point_cloud_range)),
+                voxel_size=tuple(d.get("VOXEL_SIZE", base.data.voxel_size)),
+                transform=d.get("TRANSFORM", True),
+                poses_file=d.get("POSES", "poses.txt"),
+                shuffle=d.get("SHUFFLE", True),
+                num_workers=d.get("NUM_WORKER", 4),
+                delta_t_data=d.get("DELTA_T_DATA", 0.1),
+                split_train=tuple(split.get("TRAIN", base.data.split_train)),
+                split_val=tuple(split.get("VAL", base.data.split_val)),
+                split_test=tuple(split.get("TEST", base.data.split_test)),
+            ),
+            model=ModelConfig(
+                delta_t_prediction=m.get("DELTA_T_PREDICTION", 0.1),
+                n_past_steps=m.get("N_PAST_STEPS", 10),
+                use_motion_loss=m.get("USE_MOTION_LOSS", True),
+                bev=BEVConfig(
+                    num_bev_features=m.get("MAP_TO_BEV", {}).get(
+                        "NUM_BEV_FEATURES", 256),
+                    layer_nums=tuple(b2.get("LAYER_NUMS", (5,))),
+                    layer_strides=tuple(b2.get("LAYER_STRIDES", (1,))),
+                    num_filters=tuple(b2.get("NUM_FILTERS", (128,))),
+                    upsample_strides=tuple(b2.get("UPSAMPLE_STRIDES", (2,))),
+                    num_upsample_filters=tuple(
+                        b2.get("NUM_UPSAMPLE_FILTERS", (256,))),
+                ),
+                head=HeadConfig(
+                    num_class=head.get("NUM_CLASS", 3),
+                    max_objs=ta.get("MAX_OBJS", 100),
+                    out_size_factor=ta.get("OUT_SIZE_FACTOR", 4),
+                    gaussian_overlap=ta.get("GAUSSIAN_OVERLAP", 0.1),
+                    min_radius=ta.get("MIN_RADIUS", 2),
+                    cls_weight=lw.get("cls_weight", 1.0),
+                    loc_weight=lw.get("loc_weight", 2.0),
+                    code_weights=tuple(lw.get("code_weights", (1.0,) * 8)),
+                ),
+                post=PostProcessConfig(
+                    score_thresh=pp.get("SCORE_THRESH", 0.1),
+                    nms_thresh=nms.get("NMS_THRESH", 0.01),
+                    nms_pre_maxsize=nms.get("NMS_PRE_MAXSIZE", 4096),
+                    nms_post_maxsize=nms.get("NMS_POST_MAXSIZE", 500),
+                    recall_thresh_list=tuple(
+                        pp.get("RECALL_THRESH_LIST", (0.3, 0.5, 0.7))),
+                    multi_classes_nms=bool(nms.get("MULTI_CLASSES_NMS", False)),
+                ),
+            ),
+            train=TrainConfig(
+                max_epoch=t.get("MAX_EPOCH", 160),
+                lr=t.get("LR", 1e-4),
+                lr_epoch=t.get("LR_EPOCH", 1),
+                lr_decay=t.get("LR_DECAY", 0.99),
+                weight_decay=t.get("WEIGHT_DECAY", 1e-4),
+                batch_size=t.get("BATCH_SIZE", 1),
+                acc_batches=t.get("ACC_BATCHES", 1),
+                augmentation=t.get("AUGMENTATION", True),
+                bn_momentum_scale=t.get("BN_MOMENTUM_SCALE", 1.0),
+            ),
+        )
+
+    # ------------------------------------------------------------- scaling
     def tiny(self, *, points: int = 2048, max_voxels: int = 4096) -> "Config":
         """A small-capacity clone for tests."""
         mn = dataclasses.replace(
@@ -189,3 +303,7 @@ class Config:
         )
         runtime = dataclasses.replace(self.runtime, max_points_per_scan=points)
         return dataclasses.replace(self, model=model, runtime=runtime)
+
+
+def load_config(path: str | None = None) -> Config:
+    return Config() if path is None else Config.from_yaml(path)

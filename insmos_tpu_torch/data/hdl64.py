@@ -188,6 +188,31 @@ def _raycast_steps(n_steps: int, seed: int):
         yield w, ego, scan, rng
 
 
+def make_pose_stream(cfg, n_steps: int, seed: int = 0, turn: bool = True):
+    """The fixture streams as a sensor would record them: each scan in its
+    sensor frame, randomly permuted and cut to
+    ``cfg.runtime.max_points_per_scan``, beside the LiDAR pose of each step
+    (float64, the first the identity). The ego moves ~11 m/s and, with
+    ``turn``, turns at 0.01 rad/step (:func:`make_stream`'s stream);
+    without, its scans are those that :func:`make_fixed_frame_stream`
+    frames. Returns (scans [(n_i, 4) float32], poses (n_steps, 4, 4))."""
+    P = cfg.runtime.max_points_per_scan
+    scans, poses = [], []
+    for w, ego, scan, rng in _raycast_steps(n_steps, seed):
+        pose = np.eye(4)
+        pose[:2, 3] = ego
+        scan_f = scan.astype(np.float32).copy()
+        if turn:
+            psi = 0.01 * w
+            c, s = np.cos(psi), np.sin(psi)
+            pose[:2, :2] = [[c, -s], [s, c]]
+            scan_f[:, :2] = scan_f[:, :2] @ np.float32([[c, s], [-s, c]]).T
+        n = min(len(scan_f), P)
+        scans.append(scan_f[rng.permutation(len(scan_f))[:n]])
+        poses.append(pose)
+    return scans, np.stack(poses)
+
+
 def make_stream(cfg, n_steps: int, seed: int = 0):
     """The ref-exact stream of the JAX package's bench.make_stream: a
     moving ego (~11 m/s) turning at 0.01 rad/step raycasts the fixture
@@ -195,50 +220,32 @@ def make_stream(cfg, n_steps: int, seed: int = 0):
     ``cfg.runtime.max_points_per_scan``, and each step's transform
     inv(pose_t) @ pose_{t-1} carries the real rotation. Returns (scans
     [(n_i, 4) float32], tfs [(4, 4) float32])."""
-    P = cfg.runtime.max_points_per_scan
-    scans, tfs = [], []
-    prev_pose = None
-    for w, ego, scan, rng in _raycast_steps(n_steps, seed):
-        psi = 0.01 * w
-        c, s = np.cos(psi), np.sin(psi)
-        pose = np.eye(4)
-        pose[:2, :2] = [[c, -s], [s, c]]
-        pose[:2, 3] = ego
-        scan_f = scan.astype(np.float32).copy()
-        scan_f[:, :2] = scan_f[:, :2] @ np.float32([[c, s], [-s, c]]).T
-        tf = (np.linalg.inv(pose) @ (prev_pose if prev_pose is not None
-                                     else pose)).astype(np.float32)
-        prev_pose = pose
-        n = min(len(scan_f), P)
-        scans.append(scan_f[rng.permutation(len(scan_f))[:n]])
-        tfs.append(tf)
+    scans, poses = make_pose_stream(cfg, n_steps, seed)
+    tfs = [(np.linalg.inv(p) @ poses[max(i - 1, 0)]).astype(np.float32)
+           for i, p in enumerate(poses)]
     return scans, tfs
 
 
 def make_fixed_frame_stream(cfg, n_steps: int, seed: int = 0):
     """The fixed-frame stream of the JAX package's bench.make_stream (its
     headline, ``ref_exact=False``): the same ego without turning, each scan
-    re-expressed by ``pipeline.fixed_frame_transform`` in the voxel-snapped
-    odometry frame, then permuted and cut as in :func:`make_stream`. Each
-    step's transform is the snapped integer-voxel translation k * voxel.
-    Returns (scans [(n_i, 4) float32], tfs [(4, 4) float32], shifts [(3,)
-    int32], the cache shifts -k)."""
+    permuted and cut as in :func:`make_stream`, then re-expressed by
+    ``pipeline.fixed_frame_transform`` in the voxel-snapped odometry frame.
+    Each step's transform is the snapped integer-voxel translation k *
+    voxel. Returns (scans [(n_i, 4) float32], tfs [(4, 4) float32], shifts
+    [(3,) int32], the cache shifts -k)."""
     from ..pipeline import fixed_frame_transform
 
-    P = cfg.runtime.max_points_per_scan
     vox = cfg.data.voxel_size[0]
     scans, tfs, shifts = [], [], []
     prev_snap = None
-    for _, ego, scan, rng in _raycast_steps(n_steps, seed):
-        pose = np.eye(4)
-        pose[:2, 3] = ego
-        scan_f, tf, prev_snap = fixed_frame_transform(
-            scan.astype(np.float32), pose, prev_snap, vox)
+    for scan, pose in zip(*make_pose_stream(cfg, n_steps, seed, turn=False)):
+        scan_f, tf, prev_snap = fixed_frame_transform(scan, pose, prev_snap,
+                                                      vox)
         k = np.round(tf[:3, 3] / vox)
         tf_snap = np.eye(4, dtype=np.float32)
         tf_snap[:3, 3] = (k * vox).astype(np.float32)
-        n = min(len(scan_f), P)
-        scans.append(scan_f[rng.permutation(len(scan_f))[:n]])
+        scans.append(scan_f)
         tfs.append(tf_snap)
         shifts.append((-k).astype(np.int32))
     return scans, tfs, shifts

@@ -97,11 +97,20 @@ def voxelize_points(points, point_valid, pc_range, voxel_size, dims,
     vox_coord = torch.floor((points[:, :3] - lo) * inv).to(torch.int32)
     sites, p2v, slot, counts = unique_voxels(
         vox_coord, dims, capacity, point_valid, first_occurrence_cap=True)
-    in_mean = (p2v >= 0) & (slot < max_points_per_voxel)
-    seg = torch.where(in_mean, p2v, capacity).to(torch.int64)
-    feat_sum = torch.zeros((capacity + 1, points.shape[1]),
+    M = max_points_per_voxel
+    in_mean = (p2v >= 0) & (slot < M)
+    # every point of the mean owns one cell (voxel, slot), and a voxel's
+    # slots follow its points' order: summed slot by slot, the sum is the
+    # JAX package's segment sum in point order, with no atomic adds, so
+    # the same on every run (a float index_add_ on CUDA is not)
+    cell = torch.where(in_mean, p2v.to(torch.int64) * M + slot, capacity * M)
+    per_slot = torch.zeros(((capacity + 1) * M, points.shape[1]),
                            dtype=points.dtype, device=dev)
-    feat_sum.index_add_(0, seg, torch.where(in_mean[:, None], points, 0.0))
+    per_slot[cell] = points
+    per_slot = per_slot.view(capacity + 1, M, -1)
+    feat_sum = per_slot[:, 0]
+    for s in range(1, M):
+        feat_sum = feat_sum + per_slot[:, s]
     denom = torch.clamp(torch.clamp(counts, max=max_points_per_voxel),
                         min=1).to(points.dtype)
     return sites.replace_feats(feat_sum[:capacity] / denom[:, None]), p2v

@@ -1,1 +1,2 @@
-"""Parameter init and loading."""
+"""Parameters, checkpoints, the reference checkpoint converter and the
+prediction artifacts."""

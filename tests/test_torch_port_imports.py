@@ -1,6 +1,7 @@
 """The PyTorch port imports no jax and nothing of the JAX package, and its
 parameter init mirrors the JAX package's tree exactly."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +17,18 @@ from insmos_tpu_torch.config import Config as PortConfig
 from insmos_tpu_torch.nn.model import InsMOSModel as TorchModel
 from insmos_tpu_torch.utils.params import init_params, load_jax_params
 
+from torch_port_common import cpu_threads
+
 REPO = Path(__file__).resolve().parents[1]
+
+
+def _run(script):
+    """``script`` in a fresh interpreter at the repo root, with the torch
+    threads of this test process."""
+    return subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ,
+                                   OMP_NUM_THREADS=str(cpu_threads())))
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -36,8 +48,7 @@ assert not bad, bad
 
 
 def test_port_imports_no_jax():
-    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+    res = _run(_IMPORT_ALL)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "modules []" in res.stdout
 
@@ -72,10 +83,48 @@ assert not bad, bad
 def test_incremental_pipeline_runs_without_jax():
     """The incremental mode's pipeline, fixed-frame stream and chip_smoke's
     configs, with jax and the JAX package blocked."""
-    res = subprocess.run([sys.executable, "-c", _INCREMENTAL], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+    res = _run(_INCREMENTAL)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "incremental ok []" in res.stdout
+
+
+_CLI = r"""
+import os, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["insmos_tpu"] = None
+import numpy as np
+from insmos_tpu_torch.cli import evaluate_mos, predict_mos, refine
+from insmos_tpu_torch.config import Config
+from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
+from insmos_tpu_torch.utils.checkpoint import save_checkpoint_from_trees
+from insmos_tpu_torch.utils.params import init_params
+cfg = Config().tiny(points=2048, max_voxels=1024)
+with tempfile.TemporaryDirectory() as tmp:
+    write_synthetic_sequence(tmp, seq=8, n_scans=2, seed=0, n_ground=600,
+                             n_per_obj=40)
+    save_checkpoint_from_trees(tmp + "/ckpt", cfg,
+                               *init_params(cfg, np.random.default_rng(0)))
+    stats = predict_mos.main(["--ckpt", tmp + "/ckpt", "--data_path", tmp,
+                              "--sequences", "8", "--out", tmp + "/out",
+                              "--device", "cpu", "--fixed-frame"])
+    refine.main(["--data_path", tmp, "--pred", tmp + "/out/InsMOS",
+                 "--out", tmp + "/ref", "--sequences", "8"])
+    res = evaluate_mos.evaluate(tmp, tmp + "/ref/mos_preb", [8])
+assert stats["scans"] == 2 and 0.0 <= res["iou_static"] <= 1.0
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "insmos_tpu")
+       and sys.modules[m]]
+print("cli ok", bad)
+assert not bad, bad
+"""
+
+
+def test_cli_runs_without_jax():
+    """predict_mos (--fixed-frame, from a port checkpoint), refine and
+    evaluate_mos on a synthetic sequence, with jax and the JAX package
+    blocked."""
+    res = _run(_CLI)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "cli ok []" in res.stdout
 
 
 def _leaves(tree):

@@ -6,10 +6,26 @@ package and the port."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
+import torch
 
 from insmos_tpu.config import Config, DataConfig, MotionNetConfig
+
+
+def cpu_threads() -> int:
+    """Intra-op threads for one test process: the machine's cores shared
+    among the pytest-xdist workers that run beside it. torch's OpenMP pool
+    sizes itself to the whole machine in every worker, and its threads
+    spin between the many small ops of a pipeline step; with 6 workers on
+    8 cores that made the port's pipeline steps run tens of times slower
+    than in one process."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    return max(1, (os.cpu_count() or 1) // workers)
+
+
+torch.set_num_threads(cpu_threads())
 
 
 def tiny_config(window: int = 4, points: int = 2048,
