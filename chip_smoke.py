@@ -29,7 +29,12 @@ without --production, and probe_dotshapes) at their full case lists, each
 kernel held against its plain version, and last the micro probes (T1-T9:
 micro_pallas, micro_pallas2, micro_lanegather, micro_lanegather2,
 probe_tala) and the rowconv probe (T11: probe_pallas_rowconv) at the TPU
-probes' full sizes. Any failure raises and ends the run with a non-zero
+probes' full sizes. The training phase last: full-width train steps (the
+windowed engine and its custom backward, train-mode BatchNorm, the losses
+and one Adam update), one float32 step held against the committed JAX
+record (tests/torch_goldens/train_record.npz, tools/train_record.py) and
+repeated, and the training CLI with its resume and a validation pass on
+the span kernels. Any failure raises and ends the run with a non-zero
 exit code; the line before the last lists every kernel with its launches,
 error, time (CUDA events; on the probes also torch.profiler's device
 time), plain time, bound and one-call PyTorch time, the last line
@@ -60,6 +65,7 @@ import torch
 
 from insmos_tpu_torch import kernels, setup_device, tools
 from insmos_tpu_torch.cli import evaluate_mos, predict_mos, refine
+from insmos_tpu_torch.cli import train as train_cli
 from insmos_tpu_torch.config import Config
 from insmos_tpu_torch.data.kitti import load_files, read_point_cloud
 from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
@@ -78,8 +84,11 @@ from insmos_tpu_torch.tools import probe_dotshapes as PD
 from insmos_tpu_torch.tools import probe_extract as PE
 from insmos_tpu_torch.tools import probe_pallas_rowconv as RC
 from insmos_tpu_torch.tools import probe_tala as PT
+from insmos_tpu_torch.tools import measure_train_step as MT
 from insmos_tpu_torch.tools import stream_record as SR
-from insmos_tpu_torch.utils.checkpoint import save_checkpoint_from_trees
+from insmos_tpu_torch.tools import train_record as TR
+from insmos_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                               save_checkpoint_from_trees)
 from insmos_tpu_torch.utils.params import init_params, make_model
 
 N_SCANS = 12
@@ -111,6 +120,8 @@ INC_SHARE_STREAM = 0.05
 # span-conv launches a step of the main path in both modes (MotionNet and
 # UNet: every subm and strided sparse conv)
 SPAN_CONVS_PER_STEP = 46
+# timed full-width train steps after the warm one (phase_train)
+TRAIN_STEPS = 3
 # the micro probes (T1-T9) and the rowconv probe (T11), in the order of
 # their TPU kernels
 MICRO_PROBES = (MP, MP2, MLG, MLG2, PT, RC)
@@ -875,6 +886,128 @@ def phase_micro():
     return entries, readings
 
 
+def phase_train(card):
+    """The training path on the card.
+
+    1. Full width: the full default Config (bf16), batch 1, the HDL-64E
+       window with the raycast's moving labels and four boxes
+       (tools/measure_train_step.py); one warm step and TRAIN_STEPS timed
+       ones (synchronised): each step's losses finite, the gates 0, step
+       seconds and peak memory.
+    2. One float32 step at the record's cut against both summaries of the
+       committed record (the JAX package's step and the port's CPU route),
+       within the tolerances the record states; the same step again, and
+       the largest difference between the two runs' gradients.
+    3. cli/train for 2 epochs on a small synthetic sequence (the training
+       steps on the windowed engine, the validation on the span kernels,
+       whose launch counts are set to 0 just before and read just after):
+       top-2 + last checkpoints, a resume from the last restores its
+       optimizer state and step, predict_mos loads the best checkpoint.
+    Any failed check raises after the readings are printed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    failures = []
+    # 1. full width
+    cfg = Config()
+    full = MT.measure(cfg, "cuda", batch=1, iters=TRAIN_STEPS,
+                      labels="raycast")
+    for i, loss in enumerate(full["losses"]):
+        print(f"  train step {i} ({'warm' if i == 0 else 'timed'}): "
+              f"{json.dumps(loss)}")
+        if not all(np.isfinite(v) for v in loss.values()):
+            failures.append(f"full-width step {i}: losses {loss}")
+    if any(full["gates"].values()):
+        failures.append(f"full-width gates {full['gates']}")
+    print(f"full-width train step (bf16, batch 1, first reading, not a "
+          f"benchmark): first {full['first_s']:.3f} s, timed "
+          f"{[round(t, 3) for t in full['step_s']]} s, mean "
+          f"{full['steady_s']:.3f} s = {full['epochs_per_day']:.2f} "
+          f"epochs/day of the reference schedule; peak memory "
+          f"{full['peak_gib']:.2f} GiB; gates {full['gates']}; on {card}")
+
+    # 2. the float32 step against the record, twice
+    rcfg, meta, recs = TR.load_record(os.path.join(here, TR.RECORD))
+    if rcfg != TR.record_config():
+        raise AssertionError("the train record is not at record_config()")
+    sample = TR.record_sample(rcfg)
+    params, state = TR.record_params(rcfg)
+    runs = [TR.port_summary(rcfg, params, state, sample, "cuda",
+                            with_grads=True) for _ in range(2)]
+    record = {}
+    for name, ref in recs.items():
+        fails, read = TR.compare(ref, runs[0][0], rcfg.train.lr,
+                                 meta["tolerances"][name])
+        record[name] = read
+        print(f"float32 train step against the record's {name} step: "
+              f"{json.dumps(read)}")
+        failures += [f"record {name}: {f}" for f in fails]
+    g0, g1 = runs[0][1], runs[1][1]
+    repeat = max((g0[n] - g1[n]).abs().max().item() / max(
+        1.0, g0[n].abs().max().item()) for n in g0)
+    bitwise = all(torch.equal(g0[n], g1[n]) for n in g0)
+    print(f"float32 train step repeated: largest gradient difference "
+          f"{repeat:.3g} (relative to max(1, max|g|) of its leaf), equal bit "
+          f"for bit: {bitwise}")
+
+    # 3. the CLI
+    os.makedirs(os.path.join(here, "runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase_train_",
+                            dir=os.path.join(here, "runs"))
+    try:
+        root = os.path.join(work, "kitti")
+        write_synthetic_sequence(root, seq=0, n_scans=6, seed=3,
+                                 n_ground=400, n_per_obj=40)
+        scfg = small_config()
+        scfg = dataclasses.replace(
+            scfg,
+            data=dataclasses.replace(scfg.data, split_train=(0,),
+                                     split_val=(0,), num_workers=2),
+            train=dataclasses.replace(scfg.train, batch_size=2))
+        cfg_path = os.path.join(work, "cfg.yaml")
+        with open(cfg_path, "w") as fh:
+            json.dump(scfg.to_dict(), fh)
+        out = os.path.join(work, "run")
+        args = ["--config", cfg_path, "--data", root, "--out", out]
+        SC.SPAN_KERNELS.reset_counts()
+        ts = train_cli.main(args + ["--epochs", "2", "--bn_reest", "1"])
+        launches = {"main": SC.SPAN_KERNELS.main_launches,
+                    "slots": SC.SPAN_KERNELS.slot_launches}
+        names = sorted(os.listdir(os.path.join(out, "ckpt")))
+        last = os.path.join(out, "ckpt", "last")
+        _, _, step, opt = load_checkpoint(last, "cuda", with_opt=True)
+        resumed = train_cli.main(args + ["--epochs", "2", "--checkpoint",
+                                         last])
+        restored = resumed.step == step == ts.step and all(
+            torch.equal(a.cpu(), b) for k in opt["optimizer"]["state"]
+            for a, b in zip(resumed.optimizer.state_dict()["state"][k]
+                            .values(), opt["optimizer"]["state"][k].values()))
+        best = train_cli.best_checkpoint(out)
+        stats = predict_mos.main(["--ckpt", best, "--data_path", root,
+                                  "--sequences", "0", "--out",
+                                  os.path.join(work, "preb")])
+        print(f"train CLI: 2 epochs, {ts.step} steps, checkpoints {names}, "
+              f"resume restored the optimizer state and step {step}: "
+              f"{restored}; predict_mos on the best checkpoint "
+              f"{os.path.basename(best)}: {stats['scans']} scans; span-kernel "
+              f"launches in the validation passes {launches}")
+        if len(names) != 3 or "last" not in names:
+            failures.append(f"train CLI checkpoints {names}")
+        if not restored:
+            failures.append("train CLI resume did not restore its state")
+        if stats["scans"] != 6:
+            failures.append(f"predict_mos on the best checkpoint: {stats}")
+        if not launches["main"] > 0:
+            failures.append(f"validation launched no span kernel {launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase_train: {seconds:.1f} s")
+    if failures:
+        raise AssertionError("phase_train: " + " | ".join(failures))
+    return dict(full=full, record=record, repeat=repeat, bitwise=bitwise,
+                launches=launches, seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--details", help="write run details to this JSON file")
@@ -915,6 +1048,7 @@ def main() -> int:
           f"{ {k: v / N_SCANS for k, v in launches.items()} }")
     probe_entries, probes = phase_probes()
     micro_entries, probes["micro"] = phase_micro()
+    train = phase_train(card)
     print(f"device_ms profiler sessions: {tools.SESSIONS['whole']} whole, "
           f"{tools.SESSIONS['short']} short and run again, "
           f"{tools.SESSIONS['events']} calls timed by CUDA events instead")
@@ -930,9 +1064,10 @@ def main() -> int:
          # steps, and the largest error of its full-window step's convs
          "launches_incremental": inc["launches"][key],
          "max_abs_err_incremental": inc["kernel_err"][key],
-         # this slice's main path: predict_mos over both full-config
-         # sequences
-         "launches_cli": cli["launches"][key]}
+         # predict_mos over both full-config sequences
+         "launches_cli": cli["launches"][key],
+         # the training slice: the validation passes of cli/train
+         "launches_train": train["launches"][key]}
         for (name, rep), key in zip(KERNELS, ("main", "slots"))
     ] + probe_entries + micro_entries}
     if args.details:
@@ -942,7 +1077,7 @@ def main() -> int:
             json.dump(dict(card=card, report=report, classes=classes,
                            step_ms=step_ms, gates=gates, ref_err=ref_err,
                            incremental=inc, incremental_ref_err=inc_ref_err,
-                           cli=cli,
+                           cli=cli, train=train,
                            probes=probes), fh, indent=1)
     for name, c in sorted(list(classes.items()) + [
             ("(incremental) " + k, v) for k, v in inc["classes"].items()]):

@@ -1,5 +1,6 @@
 """HDL-64E raycast scan generator (the port's own numpy copy of
-``insmos_tpu/data/hdl64.py``: ``_make_world`` and ``raycast_scan``).
+``insmos_tpu/data/hdl64.py``: ``_make_world``, ``raycast_scan`` and
+``make_hdl64_window``).
 
 The synthetic fixture the streaming runs use: 64 beams at elevations
 +2.0 .. -24.9 deg, 2048 azimuth steps per revolution, the sensor 1.73 m
@@ -171,6 +172,42 @@ def raycast_scan(
     pts = np.stack([x, y, z, rng.uniform(0, 1, len(x))], -1).astype(np.float32)
     moving = (kind[a_i] == 3) & hits_obst[b_i, a_i]
     return pts, moving
+
+
+def make_hdl64_window(cfg, seed: int = 0, n_scans: int | None = None):
+    """A pose-aligned window of raycast HDL-64E scans, aligned to the last
+    scan's frame (the ego translates without turning, so aligned means
+    translated), with the raycast's moving labels (2 moving, 1 static).
+    Returns the sample dict of the JAX package's make_hdl64_window (no
+    boxes), bit for bit."""
+    rng = np.random.default_rng(seed)
+    W = n_scans or cfg.model.n_past_steps
+    P = cfg.runtime.max_points_per_scan
+    world = _make_world(rng)
+    ego_speed = np.array([1.1, 0.05])  # m per scan step (~11 m/s at 10 Hz)
+
+    pts = np.zeros((W, P, 4), np.float32)
+    num = np.zeros((W,), np.int32)
+    labels = np.zeros((W, P), np.int32)
+    ego_cur = ego_speed * (W - 1)
+    for w in range(W):
+        ego = ego_speed * w
+        scan, moving = raycast_scan(world, ego, w, rng)
+        scan = scan.copy()
+        scan[:, :2] += (ego - ego_cur)[None].astype(np.float32)
+        n = min(len(scan), P)
+        sel = rng.permutation(len(scan))[:n]
+        pts[w, :n] = scan[sel]
+        labels[w, :n] = np.where(moving[sel], 2, 1)
+        num[w] = n
+    return {
+        "points": pts,
+        "num_points": num,
+        "scan_mask": np.ones((W,), bool),
+        "labels": labels,
+        "gt_boxes": np.zeros((cfg.model.head.max_objs, 8), np.float32),
+        "num_boxes": np.int32(0),
+    }
 
 
 def _raycast_steps(n_steps: int, seed: int):

@@ -1,1 +1,1 @@
-"""Networks of the port (eval mode)."""
+"""Networks of the port."""

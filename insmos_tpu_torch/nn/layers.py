@@ -1,4 +1,4 @@
-"""NN primitives (port of insmos_tpu/nn/layers.py), inference only.
+"""NN primitives (port of insmos_tpu/nn/layers.py).
 
 Parameters live in ``nn.Module``s whose attribute names follow the JAX
 parameter tree, so ``utils.params.load_jax_params`` maps tree paths to
@@ -6,6 +6,13 @@ state-dict keys one to one. Matmuls take operands in the compute dtype
 (bf16 by default) and accumulate in float32: the operands are widened to
 float32 before the product, which is exact for bf16 and matches the
 reference's ``preferred_element_type=float32``.
+
+BatchNorm follows torch semantics in both modes: in train mode it
+normalises by the batch's biased variance over the rows that exist (padding
+rows excluded) and computes the running statistics' update, new = (1 - m) *
+old + m * batch with the unbiased variance, which the caller applies
+(``collect_bn_state``): a batch's samples each normalise with their own
+statistics and their updates are averaged, as the reference's vmap does.
 """
 
 from __future__ import annotations
@@ -72,12 +79,19 @@ class ConvTranspose2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm: ``scale``/``bias`` parameters, running
-    ``mean``/``var`` buffers, and the owning network's eps."""
+    """BatchNorm with ``scale``/``bias`` parameters, running ``mean``/``var``
+    buffers and the owning network's eps. The momentum is ``base_momentum``
+    (0.1 in MinkowskiEngine's MotionNet, 0.01 in the spconv UNet and the
+    BEV backbone) times ``momentum_scale`` (the config's
+    ``bn_momentum_scale``), at most 1. A train-mode call leaves the update
+    of the running statistics in ``new_stats`` (detached)."""
 
-    def __init__(self, c: int, eps: float):
+    def __init__(self, c: int, eps: float, base_momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.base_momentum = base_momentum
+        self.momentum_scale = 1.0
+        self.new_stats = None
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -88,11 +102,63 @@ class BatchNorm(nn.Module):
         s = self.scale * torch.rsqrt(self.var + self.eps)
         return s, self.bias - self.mean * s
 
-    def forward(self, x):
+    def record(self, mean, var, n):
+        """Keep the running statistics' update from a batch's mean and
+        biased variance over ``n`` rows."""
+        m = min(1.0, self.base_momentum * self.momentum_scale)
+        unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+        self.new_stats = ((1 - m) * self.mean + m * mean.detach(),
+                          (1 - m) * self.var + m * unbiased.detach())
+
+    def forward(self, x, train: bool = False, mask=None):
         """(x - mean) * rsqrt(var + eps) * scale + bias over the last axis
-        (the reference's dense batch_norm form)."""
-        return (x - self.mean) * torch.rsqrt(self.var + self.eps) * \
-            self.scale + self.bias
+        (the reference's dense batch_norm form). In train mode the
+        statistics are the batch's, two-pass, over the rows where ``mask``
+        (broadcastable to x[..., 0]) holds, or over all rows."""
+        if not train:
+            return (x - self.mean) * torch.rsqrt(self.var + self.eps) * \
+                self.scale + self.bias
+        axes = tuple(range(x.ndim - 1))
+        if mask is None:
+            n = torch.tensor(float(x[..., 0].numel()), device=x.device)
+            mean = x.mean(dim=axes)
+            var = ((x - mean) ** 2).mean(dim=axes)
+        else:
+            m = mask.to(x.dtype)[..., None]
+            n = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(dim=axes) / n
+            var = (((x - mean) ** 2) * m).sum(dim=axes) / n
+        self.record(mean, var, n)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale + \
+            self.bias
+
+
+def bn_modules(model: nn.Module):
+    """(name, BatchNorm) of every BatchNorm under ``model``."""
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, BatchNorm)]
+
+
+def set_bn_momentum_scale(model: nn.Module, scale: float) -> None:
+    for _, m in bn_modules(model):
+        m.momentum_scale = scale
+
+
+def clear_bn_state(model: nn.Module) -> None:
+    for _, m in bn_modules(model):
+        m.new_stats = None
+
+
+def collect_bn_state(model: nn.Module) -> dict:
+    """The BN state after a train-mode forward, as state-dict entries
+    (``<module>.mean`` / ``<module>.var``): each BatchNorm's recorded
+    update, or its running statistics where it did not run in train mode."""
+    out = {}
+    for name, m in bn_modules(model):
+        mean, var = m.new_stats if m.new_stats is not None else (m.mean,
+                                                                 m.var)
+        out[f"{name}.mean"], out[f"{name}.var"] = mean, var
+    return out
 
 
 def conv2d(x, w, stride: int = 1):

@@ -1,5 +1,5 @@
 """MotionNet: the 4D (x, y, z, t) sparse UNet over the scan window (port of
-insmos_tpu/nn/minkunet4d.py), streaming inference on the span engine.
+insmos_tpu/nn/minkunet4d.py).
 
 Structure (channels; kernels as (spatial, temporal)):
   stem    subm (5,1)            in -> 8
@@ -11,9 +11,12 @@ Structure (channels; kernels as (spatial, temporal)):
   up7     inverse (2,1)         16 -> 8   ; cat stem   -> 16; block8 -> 8
   final   1x1 conv (bias)        8 -> out (3 motion classes)
 
-Inference runs the t-pruning schedule (only the current scan's output is
-consumed, so each tensor keeps a trailing slot window) and the decoder's
-spatial pruning onto reach-2 halos of the current scan. The stem runs over
+Two engines (``use_span_engine``): inference runs on the span engine with
+the t-pruning schedule (only the current scan's output is consumed, so each
+tensor keeps a trailing slot window) and the decoder's spatial pruning onto
+reach-2 halos of the current scan; training runs on the differentiable
+windowed engine (slab.window_tables / window_conv) over the whole window,
+its BatchNorm statistics over every occupied 4D site. The stem runs over
 the whole window every step (ref-exact mode) or, in the fixed-frame
 incremental mode, only over the new scan at T=1: the stem's t-kernel is 1,
 so a slot's output depends on its own scan alone and the previous step's
@@ -38,7 +41,9 @@ from ..sparse.slab import (
     parent_index,
     site_grid,
     slice_slots,
+    strided_occ,
     take_rows,
+    window_tables,
 )
 from ..sparse.span_conv import _bisect, make_span_plan, make_span_plans
 from ..sparse.tensor import KEY_SENTINEL
@@ -47,6 +52,7 @@ from .blocks_slab import (
     ConvBN,
     basic_block_slab_cat,
     basic_block_slab_pruned,
+    cat_slab,
     inverse_block_slab,
     subm_block_slab,
 )
@@ -81,7 +87,24 @@ PLAN_BUDGETS = {
 }
 
 
-_EPS = 1e-5  # MinkowskiEngine BatchNorm eps (minkunet4d._bn_of)
+# MinkowskiEngine BatchNorm defaults (minkunet4d._bn_of): eps, and the
+# momentum that cfg.train.bn_momentum_scale scales
+_EPS = 1e-5
+_MOMENTUM = 0.1
+
+
+def use_span_engine(cfg, train: bool) -> bool:
+    """The span engine for inference, the windowed engine for training, on
+    either device; ``sparse_engine`` "window" or "span" forces one. (The
+    reference's "auto" also takes the windowed engine for inference on the
+    CPU; the port's CPU inference is the span engine's plain route, held
+    against the reference's window engine by the tests.)"""
+    mode = cfg.runtime.sparse_engine
+    if mode == "window":
+        return False
+    if mode == "span":
+        return True
+    return not train
 
 
 class MotionNet(nn.Module):
@@ -91,21 +114,21 @@ class MotionNet(nn.Module):
         super().__init__()
         mc = cfg.model.motionnet
         pl, d0 = mc.planes, mc.init_dim
-        eps = _EPS
+        bn = (_EPS, _MOMENTUM)
         kv = lambda k: k[0] * k[1] * k[2] * k[3]  # noqa: E731
-        self.stem = ConvBN(kv(_K_STEM), 1, d0, eps)
-        self.down1 = ConvBN(kv(_K_DOWN), d0, d0, eps)
-        self.block1 = BasicBlock(kv(_K_BLOCK), d0, pl[0], d0 != pl[0], eps)
-        self.down2 = ConvBN(kv(_K_DOWN), pl[0], pl[0], eps)
-        self.block2 = BasicBlock(kv(_K_BLOCK), pl[0], pl[1], True, eps)
-        self.down3 = ConvBN(kv(_K_DOWN), pl[1], pl[1], eps)
-        self.block3 = BasicBlock(kv(_K_BLOCK), pl[1], pl[2], True, eps)
-        self.up5 = ConvBN(kv(_K_DOWN), pl[2], pl[5], eps)
-        self.block6 = BasicBlock(kv(_K_BLOCK), pl[5] + pl[1], pl[5], True, eps)
-        self.up6 = ConvBN(kv(_K_DOWN), pl[5], pl[6], eps)
-        self.block7 = BasicBlock(kv(_K_BLOCK), pl[6] + pl[0], pl[6], True, eps)
-        self.up7 = ConvBN(kv(_K_DOWN), pl[6], pl[7], eps)
-        self.block8 = BasicBlock(kv(_K_BLOCK), pl[7] + d0, pl[7], True, eps)
+        self.stem = ConvBN(kv(_K_STEM), 1, d0, *bn)
+        self.down1 = ConvBN(kv(_K_DOWN), d0, d0, *bn)
+        self.block1 = BasicBlock(kv(_K_BLOCK), d0, pl[0], d0 != pl[0], *bn)
+        self.down2 = ConvBN(kv(_K_DOWN), pl[0], pl[0], *bn)
+        self.block2 = BasicBlock(kv(_K_BLOCK), pl[0], pl[1], True, *bn)
+        self.down3 = ConvBN(kv(_K_DOWN), pl[1], pl[1], *bn)
+        self.block3 = BasicBlock(kv(_K_BLOCK), pl[1], pl[2], True, *bn)
+        self.up5 = ConvBN(kv(_K_DOWN), pl[2], pl[5], *bn)
+        self.block6 = BasicBlock(kv(_K_BLOCK), pl[5] + pl[1], pl[5], True, *bn)
+        self.up6 = ConvBN(kv(_K_DOWN), pl[5], pl[6], *bn)
+        self.block7 = BasicBlock(kv(_K_BLOCK), pl[6] + pl[0], pl[6], True, *bn)
+        self.up7 = ConvBN(kv(_K_DOWN), pl[6], pl[7], *bn)
+        self.block8 = BasicBlock(kv(_K_BLOCK), pl[7] + d0, pl[7], True, *bn)
         self.final = Linear(pl[7], mc.out_channels, bias=True)
 
 
@@ -171,12 +194,14 @@ def _incremental_stem(p: MotionNet, cfg, x: Slab, coords3, point_valid,
 
 
 def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
-                      stem_cache=None, cache_shift=None, win_cache=None,
-                      emit_cache: bool = False):
+                      train: bool = False, stem_cache=None, cache_shift=None,
+                      win_cache=None, emit_cache: bool = False):
     """points (W, P, 4+) pose-aligned window, point_valid (W, P).
 
     Returns (motion feats of the CURRENT scan (P, C) float32, stats with
-    "sites", "dropped" and "span_overflow" lists of 0-d tensors).
+    "sites", "dropped" and "span_overflow" lists of 0-d tensors; the last
+    is empty on the windowed engine). ``train`` runs BatchNorm in train
+    mode (each BatchNorm records its update) and no pruning.
 
     ``stem_cache`` ({"keys": (cap0,), "feats": (cap0, W*C)}, the previous
     step's) selects the fixed-frame incremental stem; with ``win_cache``
@@ -192,6 +217,12 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
     caps = mc.site_capacities
     dev = points.device
     stats = {"sites": [], "dropped": [], "span_overflow": []}
+    span = use_span_engine(cfg, train)
+    prune = not train
+    # the windowed engine bounds its memory by output-row chunks
+    chunk = None if span else cfg.runtime.conv_chunk
+    assert stem_cache is None or (span and prune), \
+        "the incremental stem is an inference path of the span engine"
 
     lo = torch.tensor(mc.crop_range[:3], dtype=points.dtype, device=dev)
     # the maintained window site set: the previous step's, shifted, rolled
@@ -227,8 +258,8 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
     stats["dropped"].append(drop1)
     x = slab1.replace_feats(0.5 * slab1.occ.to(torch.float32))
 
-    # ---- per-level site derivation and span plans --------------------
-    prune_dec = bool(W > 1 and mc.decoder_prune)
+    # ---- per-level site derivation, span plans or window tables -------
+    prune_dec = bool(prune and span and W > 1 and mc.decoder_prune)
     slabs = {1: x}
     tables, down_tables, parent_idx = {}, {}, {}
     dims = {1: dims1}
@@ -240,6 +271,20 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
                                              dims[fout], cap)
         stats["sites"].append(n_s)
         stats["dropped"].append(n_d)
+        if not span:
+            grid = site_grid(s_in)
+            if fin == 1:
+                tables["stem"] = window_tables(grid, dims[fin], s_in.coords,
+                                               s_in.valid, _K3_STEM,
+                                               vin=caps[0])
+            tables[fin] = window_tables(grid, dims[fin], s_in.coords,
+                                        s_in.valid, _K3_BLOCK,
+                                        vin=s_in.capacity)
+            down_tables[fout] = window_tables(
+                grid, dims[fin], nxt.coords, nxt.valid, _K3_DOWN,
+                stride3=_S2, pad3=_P0, vin=s_in.capacity)
+            slabs[fout] = strided_occ(s_in, down_tables[fout], nxt)
+            continue
         reqs = []
         # the L1 block plan's only consumer is block8, which decoder
         # pruning moves onto the pruned-set plan
@@ -266,8 +311,11 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
         slabs[fout] = nxt
     s8 = slabs[8]
     grid8 = site_grid(s8)
-    tables[8] = make_span_plan(s8.keys, s8.coords, s8.valid, _K3_BLOCK,
-                               in_dims=dims[8], bs=128, **B["block"][8])
+    tables[8] = (make_span_plan(s8.keys, s8.coords, s8.valid, _K3_BLOCK,
+                                in_dims=dims[8], bs=128, **B["block"][8])
+                 if span else
+                 window_tables(grid8, dims[8], s8.coords, s8.valid,
+                               _K3_BLOCK, vin=s8.capacity))
 
     # ---- decoder spatial pruning: halo site subsets + plans ----------
     dec_tbl, dec_tpl, dec_idx = {}, {}, {}
@@ -314,7 +362,7 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
             tables[2], tables[4], tables[8],
             down_tables[2], down_tables[4], down_tables[8],
         ] + ([dec_tbl[2], dec_tbl[4]] if prune_dec else [])
-    ]
+    ] if span else []
     for fin, fout in ((4, 8), (2, 4), (1, 2)):
         if prune_dec:
             grid = grid8 if fout == 8 else site_grid(dec_tpl[fout])
@@ -329,7 +377,7 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
         "b2o": W - 9, "b3m": W - 8, "b3o": W - 7, "b6m": W - 6,
         "b6o": W - 5, "b7m": W - 4, "b7o": W - 3, "b8m": W - 2,
         "b8o": W - 1,
-    } if W > 1 else {}
+    } if prune and W > 1 else {}
 
     def t0_of(name):
         return max(tl.get(name, 0), 0)
@@ -343,11 +391,16 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
                 if t0_new > t0_cur else tensor)
 
     def block_cat(name, a, b, t0_in, tbl, mid_name, out_name):
+        """Residual block over cat(a, b): channel-split weights on the span
+        engine, the interleaved cat on the windowed one."""
+        if not span:
+            return block(name, cat_slab(a, b), t0_in, tbl, mid_name,
+                         out_name)
         mid_t0, out_t0 = t0_of(mid_name), t0_of(out_name)
         y = basic_block_slab_cat(
             getattr(p, name), a, b, _K_BLOCK, tbl, resl(a, t0_in, mid_t0),
             resl(a, t0_in, out_t0), dtype=dtype, t_off1=mid_t0 - t0_in,
-            t_off2=out_t0 - mid_t0,
+            t_off2=out_t0 - mid_t0, train=train,
         )
         return y, out_t0
 
@@ -356,7 +409,7 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
         y = basic_block_slab_pruned(
             getattr(p, name), x_t, _K_BLOCK, tbl, resl(x_t, t0_in, mid_t0),
             resl(x_t, t0_in, out_t0), dtype=dtype, t_off1=mid_t0 - t0_in,
-            t_off2=out_t0 - mid_t0,
+            t_off2=out_t0 - mid_t0, train=train, chunk=chunk,
         )
         return y, out_t0
 
@@ -378,18 +431,19 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
                                      stem_cache, stats, dtype, cache_shift)
     else:
         out_stem = subm_block_slab(p.stem, x, _K_STEM, tables["stem"],
-                                   dtype=dtype)
+                                   dtype=dtype, train=train, chunk=chunk)
     if stem_cache is not None or emit_cache:
         stats["stem_cache"] = {"keys": x.keys, "feats": out_stem.feats}
         stats["win"] = {"keys": slab1.keys, "occ": slab1.occ}
+    down = dict(dtype=dtype, with_occ=span, train=train, chunk=chunk)
     y = subm_block_slab(p.down1, out_stem, _K_DOWN, down_tables[2],
-                        out=slabs[2], dtype=dtype, with_occ=True)
+                        out=slabs[2], **down)
     out_b1, _ = block("block1", y, 0, tables[2], "b1m", "b1o")
     y = subm_block_slab(p.down2, out_b1, _K_DOWN, down_tables[4],
-                        out=slabs[4], dtype=dtype, with_occ=True)
+                        out=slabs[4], **down)
     out_b2, t_b2 = block("block2", y, 0, tables[4], "b2m", "b2o")
     y = subm_block_slab(p.down3, out_b2, _K_DOWN, down_tables[8],
-                        out=sl(slabs[8], t_b2), dtype=dtype, with_occ=True)
+                        out=sl(slabs[8], t_b2), **down)
     y, t_b3 = block("block3", y, t_b2, tables[8], "b3m", "b3o")
 
     # ---------------- decoder ----------------
@@ -407,15 +461,15 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
         lat4, lat2, lat1 = out_b2, out_b1, out_stem
         tbl4, tbl2, tbl1 = tables[4], tables[2], tables[1]
     y = inverse_block_slab(p.up5, y, resl(lat4, t_b2, t_b3), parent_idx[4],
-                           dtype=dtype)
+                           dtype=dtype, train=train)
     y, t_b6 = block_cat("block6", y, resl(lat4, t_b2, t_b3), t_b3, tbl4,
                         "b6m", "b6o")
     y = inverse_block_slab(p.up6, y, resl(lat2, 0, t_b6), parent_idx[2],
-                           dtype=dtype)
+                           dtype=dtype, train=train)
     y, t_b7 = block_cat("block7", y, resl(lat2, 0, t_b6), t_b6, tbl2,
                         "b7m", "b7o")
     y = inverse_block_slab(p.up7, y, resl(lat1, 0, t_b7), parent_idx[1],
-                           dtype=dtype)
+                           dtype=dtype, train=train)
     y, t_b8 = block_cat("block8", y, resl(lat1, 0, t_b7), t_b7, tbl1,
                         "b8m", "b8o")
 

@@ -1,1 +1,1 @@
-"""Box geometry, NMS and point-in-box ops."""
+"""Box geometry and IoU, NMS, point-in-box ops and gaussian heatmap targets."""

@@ -117,3 +117,20 @@ def iou_bev_pairs(boxes_a, boxes_b):
     area_a = (boxes_a[:, 3] * boxes_a[:, 4]).float()
     area_b = (boxes_b[:, 3] * boxes_b[:, 4]).float()
     return inter / torch.clamp(area_a + area_b - inter, min=_EPS)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """Rotated 3D IoU (A, 7) x (B, 7) -> (A, B): the BEV intersection times
+    the z overlap, over the union volume."""
+    boxes_a, boxes_b = boxes_a.float(), boxes_b.float()
+    inter_bev = rotated_overlap_bev(boxes_a, boxes_b)
+    a_zmin = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    a_zmax = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    b_zmin = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    b_zmax = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    overlap_z = torch.clamp(torch.minimum(a_zmax, b_zmax)
+                            - torch.maximum(a_zmin, b_zmin), min=0.0)
+    inter = inter_bev * overlap_z
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=1e-6)

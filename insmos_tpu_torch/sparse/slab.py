@@ -1,4 +1,4 @@
-"""Slab engine, inference subset (port of insmos_tpu/sparse/slab.py).
+"""Slab engine (port of insmos_tpu/sparse/slab.py).
 
 A ``Slab`` is a fixed-capacity T-dense sparse tensor: sites are the sorted
 set of 3D voxel keys, and the temporal axis is stored dense per site
@@ -7,10 +7,15 @@ non-occupied (site, t) slots. Everything here keeps the reference's static
 capacities: no operation has a data-dependent output shape, so nothing
 synchronises with the host.
 
-The window engine (window_tables / window_conv) is not ported; the span
-engine (span_conv.py) carries every conv of the inference path.
-``maintain_window_slab`` keeps the fixed-frame streaming mode's window site
-set from one step to the next.
+Two engines convolve slabs. The span engine (span_conv.py, with its CUDA
+kernel) carries every conv of the inference path. The windowed engine here
+(``window_tables`` / ``window_conv``) is the differentiable one that
+training runs: per (dy, dz) kernel-offset group it gathers each output
+site's kx x-neighbours, which sit in consecutive rows of the sorted site
+array, and multiplies them by the group's weight with the t-kernel folded
+in. Its backward (``_ConvCore``) recomputes each group's gather instead of
+saving it. ``maintain_window_slab`` keeps the fixed-frame streaming mode's
+window site set from one step to the next.
 """
 
 from __future__ import annotations
@@ -273,28 +278,6 @@ def derive_strided_sites(x: Slab, kernel3, stride3, pad3, out_dims,
     return out, n_sites, n_dropped
 
 
-def strided_occ(x: Slab, out: Slab, kernel3, stride3, pad3) -> Slab:
-    """out.occ = OR of the occupancy of the input sites each output site
-    gathers (t-kernel 1). Same result as the reference's window-table
-    version, computed by scattering every child's occupancy onto the output
-    rows it feeds (span inference folds this into the down conv instead —
-    SpanPlan.conv_with_occ)."""
-    from .coords import lookup_keys
-
-    cands, ok = _strided_candidates(x.coords, x.valid, kernel3, stride3, pad3)
-    Kc = cands.shape[1]
-    rows = lookup_keys(out.keys, linearize3(cands.reshape(-1, 3), out.dims))
-    rows = torch.where(ok.reshape(-1), rows, -1)
-    tgt = torch.where(rows >= 0, rows, out.capacity).to(torch.int64)
-    src = (x.occ & x.valid[:, None]).repeat_interleave(Kc, dim=0)
-    acc = torch.zeros((out.capacity + 1, x.T), dtype=torch.int32,
-                      device=x.keys.device)
-    acc.index_add_(0, tgt, src.to(torch.int32))
-    occ = (acc[:-1] > 0) & out.valid[:, None]
-    return Slab(out.keys, out.coords, occ, out.feats, out.valid, out.dims,
-                out.T)
-
-
 def dilate_mask(src_keys, src_sel, dims, reach: int, q_keys, q_valid):
     """For each query site: within L-inf distance ``reach`` of a selected
     source site? Dense bool grid + separable OR of shifted copies (the
@@ -354,6 +337,67 @@ def _groups_yz(kernel3):
     return [(ky, kz) for kz in range(kernel3[2]) for ky in range(kernel3[1])]
 
 
+@dataclass
+class WindowTables:
+    """Per-(site set, kernel geometry) neighbour tables of the windowed
+    engine.
+
+    wstart:  (G, V) int32: row of the first present x-window neighbour of
+             group g (``vin``, the zero row, when none is present).
+    slotmap: (G, kx, V) int8: window slot holding kernel x-position j
+             (its rank among the present neighbours), or -1 when absent.
+    """
+
+    wstart: torch.Tensor
+    slotmap: torch.Tensor
+    kx: int
+    vin: int
+
+    def conv(self, x: Slab, weight, out: Slab, kernel, chunk=None,
+             t0_off: int = 0) -> Slab:
+        """The conv entry shared with span_conv.SpanPlan."""
+        return window_conv(x, weight, self, out, kernel, chunk=chunk,
+                           t0_off=t0_off)
+
+
+def window_tables(grid, in_dims, out_coords, out_valid, kernel3,
+                  stride3=(1, 1, 1), pad3=None, vin: int = 0) -> WindowTables:
+    """wstart/slotmap of a (possibly strided) conv. The input that output o
+    needs at kernel x-position j is at x = ox*sx - px + j: consecutive in
+    j, so its present neighbours occupy consecutive rows of the sorted
+    site array. ``grid`` is site_grid of the input slab, indexed directly
+    (the reference probes it through an overlapped 256-wide view, a TPU
+    layout; the integers are the same)."""
+    kx = int(kernel3[0])
+    if pad3 is None:  # centered submanifold
+        pad3 = tuple((k - 1) // 2 for k in kernel3)
+    X, Y, Z = in_dims
+    dev = out_coords.device
+    oc = out_coords.to(torch.int64)
+    ox = oc[:, 0] * stride3[0] - pad3[0]
+    oy0 = oc[:, 1] * stride3[1] - pad3[1]
+    oz0 = oc[:, 2] * stride3[2] - pad3[2]
+    jx = torch.arange(kx, device=dev)
+    xs = ox[:, None] + jx[None]
+    x_ok = (xs >= 0) & (xs < X)
+    last = grid.shape[0] - 1
+    wstarts, slotmaps = [], []
+    for ky_i, kz_i in _groups_yz(kernel3):
+        iy, iz = oy0 + ky_i, oz0 + kz_i
+        row_ok = out_valid & (iy >= 0) & (iy < Y) & (iz >= 0) & (iz < Z)
+        cells = ((iz * Y + iy) * X)[:, None] + xs
+        idx = grid[cells.clamp(0, last)]
+        present = x_ok & row_ok[:, None] & (idx >= 0)
+        rank = torch.cumsum(present.to(torch.int32), dim=1) - 1
+        slot = torch.where(present, rank, -1).to(torch.int8)
+        start = torch.where(present, idx, INT32_MAX).amin(dim=1)
+        wstarts.append(torch.where(start == INT32_MAX, vin, start).to(
+            torch.int32))
+        slotmaps.append(slot.T)
+    return WindowTables(wstart=torch.stack(wstarts),
+                        slotmap=torch.stack(slotmaps), kx=kx, vin=vin)
+
+
 def slice_slots(x: Slab, t0: int, T_eff: int) -> Slab:
     """Slots [t0, t0 + T_eff) of a slab (t-pruned inference)."""
     C = x.num_features
@@ -374,6 +418,116 @@ def t_band(kt: int, T_in: int, T_out: int, doff: int, dtype=torch.float32,
     return torch.stack(
         [(i == p + doff + it - lo).to(dtype) for it in range(kt)]
     )
+
+
+def _window_rows(wstart_g, slotmap_g, vin: int):
+    """(rows, kx) int64 input row of each kernel x-position of one group:
+    wstart + slot, or the zero row ``vin`` where the neighbour is absent."""
+    sm = slotmap_g.T.to(torch.int64)
+    return torch.where(sm >= 0, wstart_g.to(torch.int64)[:, None] + sm, vin)
+
+
+def _row_chunks(V: int, chunk):
+    if chunk is None or V <= chunk:
+        return [(0, V)]
+    assert V % chunk == 0, f"capacity {V} % chunk {chunk}"
+    return [(a, a + chunk) for a in range(0, V, chunk)]
+
+
+class _ConvCore(torch.autograd.Function):
+    """sum_g gather(feats, g) @ wg[g], float32 accumulation, with a
+    memory-bounded backward: only (feats, wg, tables) are saved, each
+    group's gather is recomputed in the backward, dW and the feature
+    cotangent are computed in float32 and the latter is scatter-added back
+    through the window rows (the reference's _conv_core custom VJP). Output
+    rows are processed ``chunk`` at a time in both directions."""
+
+    @staticmethod
+    def forward(ctx, feats, wg, wstart, slotmap, chunk):
+        Vin, TC = feats.shape
+        G, V = wstart.shape
+        fpad = torch.cat([feats, feats.new_zeros((1, TC))])
+        w32 = wg.float()
+        out = torch.zeros((V, wg.shape[2]), dtype=torch.float32,
+                          device=feats.device)
+        for a, b in _row_chunks(V, chunk):
+            acc = out[a:b]
+            for g in range(G):
+                rows = _window_rows(wstart[g, a:b], slotmap[g, :, a:b], Vin)
+                src = fpad[rows.reshape(-1)].reshape(b - a, -1).float()
+                acc += src @ w32[g]
+        ctx.save_for_backward(feats, wg, wstart, slotmap)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, wg, wstart, slotmap = ctx.saved_tensors
+        Vin, TC = feats.shape
+        G, V = wstart.shape
+        kx = slotmap.shape[1]
+        fpad = torch.cat([feats, feats.new_zeros((1, TC))])
+        g32 = grad.float()
+        w32 = wg.float()
+        dfp = torch.zeros((Vin + 1, TC), dtype=torch.float32,
+                          device=feats.device)
+        dw = torch.zeros(w32.shape, dtype=torch.float32, device=feats.device)
+        for a, b in _row_chunks(V, ctx.chunk):
+            for g in range(G):
+                rows = _window_rows(wstart[g, a:b], slotmap[g, :, a:b],
+                                    Vin).reshape(-1)
+                src = fpad[rows].reshape(b - a, kx * TC).float()
+                dw[g] += src.T @ g32[a:b]
+                dsrc = g32[a:b] @ w32[g].T
+                dfp.index_add_(0, rows, dsrc.reshape(-1, TC))
+        return (dfp[:Vin].to(feats.dtype), dw.to(wg.dtype), None, None,
+                None)
+
+
+def window_conv(x: Slab, weight, tables: WindowTables, out: Slab, kernel,
+                chunk=None, t0_off: int = 0) -> Slab:
+    """Windowed sparse conv: submanifold (``out`` is x, centered tables) or
+    strided (``out`` from derive_strided_sites, tables with stride/pad).
+    ``weight`` (K, cin, cout), K enumerated x-fastest and t-slowest; the
+    t-kernel is folded into each group's flat weight as a (T, T_out) band
+    (block-diagonal over t), so a 3^4 kernel costs one matmul per group.
+    ``t0_off`` offsets out's slot range against x's (t-pruned inference).
+    Features enter in the weight's dtype; products and sums are float32."""
+    kx = tables.kx
+    kt = kernel[3] if len(kernel) == 4 else 1
+    G = tables.wstart.shape[0]
+    K, cin, cout = weight.shape
+    assert K == kx * G * kt, (K, kx, G, kt)
+    T, Tout = x.T, out.T
+    w5 = weight.reshape(kt, G, kx, cin, cout)
+    bands = t_band(kt, T, Tout, t0_off, torch.float32, weight.device)
+    wg = torch.einsum("igdco,itp->gdtcpo", w5.float(), bands).reshape(
+        G, kx * T * cin, Tout * cout).to(weight.dtype)
+    feats = _ConvCore.apply(x.mask_feats().to(weight.dtype), wg,
+                            tables.wstart, tables.slotmap, chunk)
+    res = out.replace_feats(feats)
+    return res.replace_feats(res.mask_feats())
+
+
+def strided_occ(x: Slab, tables: WindowTables, out: Slab) -> Slab:
+    """out.occ = OR of the occupancy of the children each output site
+    gathers (the 4D site set of a t-kernel-1 strided conv: same-t
+    children): window slot w of group g holds the w-th present neighbour,
+    so slots below the group's present count are the children."""
+    kx = tables.kx
+    occ_pad = torch.cat([x.occ & x.valid[:, None],
+                         x.occ.new_zeros((1, x.T))])
+    acc = torch.zeros((out.capacity, x.T), dtype=torch.bool,
+                      device=x.keys.device)
+    wst = tables.wstart.to(torch.int64)
+    for g in range(wst.shape[0]):
+        count = (tables.slotmap[g] >= 0).sum(dim=0)
+        for w in range(kx):
+            rows = torch.where(w < count, wst[g] + w, x.capacity)
+            acc |= occ_pad[rows]
+    occ = acc & out.valid[:, None]
+    return Slab(out.keys, out.coords, occ, out.feats, out.valid, out.dims,
+                out.T)
 
 
 def inverse_s2k2_conv(coarse: Slab, weight, fine: Slab, parent_idx) -> Slab:

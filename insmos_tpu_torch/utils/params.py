@@ -202,3 +202,32 @@ def make_model(cfg, params_np, state_np, device="cuda"):
     model.load_state_dict(load_jax_params(params_np, state_np, device),
                           strict=True)
     return model.eval()
+
+
+def _to_jax_layout(key, v):
+    """Inverse of load_jax_params' layout change for one entry."""
+    if key.startswith("bev.blocks.") and ".convs." in key:
+        return v.transpose(2, 3, 1, 0)
+    if key.startswith("bev.deblocks.") and key.endswith(".conv.w"):
+        return v.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return v
+
+
+def to_jax_trees(tensors: dict, cfg):
+    """State-dict entries (a state dict, its gradients by parameter name,
+    or a new BN state) -> numpy (params, state) trees shaped like
+    InsMOSModel.init, in the JAX layouts. Leaves with no entry are None."""
+    template = init_params(cfg, np.random.default_rng(0))
+
+    def fill(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: fill(v, f"{prefix}{k}.") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [fill(v, f"{prefix}{i}.") for i, v in enumerate(tree)]
+        key = prefix[:-1]
+        if key not in tensors or tensors[key] is None:
+            return None
+        v = tensors[key].detach().to("cpu", torch.float32).numpy()
+        return np.ascontiguousarray(_to_jax_layout(key, v))
+
+    return fill(template[0], ""), fill(template[1], "")
