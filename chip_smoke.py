@@ -23,7 +23,14 @@ float32, with the gates, the span-conv launches and scans/s, each step
 held against the committed JAX record
 (tests/torch_goldens/stream_record.npz, tools/stream_record.py), the
 float32 runs repeated bit for bit; then refine, and evaluate_mos on a
-synthetic sequence. Then it runs the
+synthetic sequence. The pod phase runs multi-stream inference
+(PodInferencePipeline, 2 slots on two streams of each mode, bf16 and
+float32) against single-stream pipelines bit for bit, with the gates (the
+span overflow per plan at the JAX package's own plans on the same streams,
+tests/torch_goldens/plan_record.json, tests/torch_plan_record.py), an idle
+slot and a rejected rotation, reads the aggregate scans/s at S = 1, 2, 4,
+and holds ``predict_mos --pod`` against the serial CLI. Then it runs
+the
 span-conv design probes (insmos_tpu_torch.tools.probe_extract, with and
 without --production, and probe_dotshapes) at their full case lists, each
 kernel held against its plain version, and last the micro probes (T1-T9:
@@ -34,7 +41,8 @@ windowed engine and its custom backward, train-mode BatchNorm, the losses
 and one Adam update), one float32 step held against the committed JAX
 record (tests/torch_goldens/train_record.npz, tools/train_record.py) and
 repeated, and the training CLI with its resume and a validation pass on
-the span kernels. Any failure raises and ends the run with a non-zero
+the span kernels; then the training CLI under torchrun (NCCL, world 1)
+against two plain runs. Any failure raises and ends the run with a non-zero
 exit code; the line before the last lists every kernel with its launches,
 error, time (CUDA events; on the probes also torch.profiler's device
 time), plain time, bound and one-call PyTorch time, the last line
@@ -70,7 +78,7 @@ from insmos_tpu_torch.config import Config
 from insmos_tpu_torch.data.kitti import load_files, read_point_cloud
 from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
 from insmos_tpu_torch.data.hdl64 import make_fixed_frame_stream, make_stream
-from insmos_tpu_torch.pipeline import InferencePipeline
+from insmos_tpu_torch.pipeline import InferencePipeline, PodInferencePipeline
 from insmos_tpu_torch.sparse import slab as S
 from insmos_tpu_torch.sparse import span_conv as SC
 from insmos_tpu_torch.sparse.tensor import KEY_SENTINEL
@@ -122,6 +130,20 @@ INC_SHARE_STREAM = 0.05
 SPAN_CONVS_PER_STEP = 46
 # timed full-width train steps after the warm one (phase_train)
 TRAIN_STEPS = 3
+# multi-stream (pod) inference: slot counts of the first scans/s reading,
+# and its warm-up and timed steps
+POD_SLOTS = (1, 2, 4)
+POD_WARM = POD_TIMED = 10
+# the JAX package's span_overflow per plan on phase_pod's streams, by
+# "<mode>/<seed>" and step (tests/torch_plan_record.py)
+PLAN_RECORD = os.path.join("tests", "torch_goldens", "plan_record.json")
+OUT_KEYS = ("point_logits", "boxes", "scores", "labels", "box_mask")
+# the data-parallel training runs: every run in torch's deterministic mode
+# (the windowed engine's index_add_ then sums in a fixed order; cuBLAS
+# needs the workspace setting), the training CLI run as __main__
+DP_PRELUDE = ("import runpy, torch; torch.use_deterministic_algorithms(True);"
+              " runpy.run_module('insmos_tpu_torch.cli.train', "
+              "run_name='__main__', alter_sys=True)")
 # the micro probes (T1-T9) and the rowconv probe (T11), in the order of
 # their TPU kernels
 MICRO_PROBES = (MP, MP2, MLG, MLG2, PT, RC)
@@ -1008,6 +1030,380 @@ def phase_train(card):
                 launches=launches, seconds=seconds)
 
 
+def pod_slot(out, i):
+    """Slot ``i``'s rows of a pod step's batched outputs."""
+    return {k: ({q: w[i] for q, w in v.items()} if k == "overflow" else v[i])
+            for k, v in out.items()}
+
+
+def outputs_equal(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in OUT_KEYS) and all(
+        torch.equal(a["overflow"][k], v) for k, v in b["overflow"].items())
+
+
+def logits_diff(a, b) -> float:
+    return float((a["point_logits"] - b["point_logits"]).abs().max())
+
+
+def pod_against_single(cfg, model, streams):
+    """The streams (one (scans, tfs) a slot) through a pod of len(streams)
+    slots on the card, with the span-kernel launch counts set to 0 just
+    before and read just after, then each stream through its own
+    single-stream pipeline. Returns (the pod, its per-slot step outputs,
+    the single-stream outputs, the launches)."""
+    S = len(streams)
+    pod = PodInferencePipeline(cfg, model, ["cuda"], slots_per_device=S)
+    n = len(streams[0][0])
+    got = [[] for _ in range(S)]
+    SC.SPAN_KERNELS.reset_counts()
+    for t in range(n):
+        out = pod.push_scans([sc[t] for sc, _ in streams],
+                             [tf[t] for _, tf in streams])
+        for i in range(S):
+            got[i].append(pod_slot(out, i))
+    torch.cuda.synchronize()
+    launches = {"main": SC.SPAN_KERNELS.main_launches,
+                "slots": SC.SPAN_KERNELS.slot_launches}
+    single = []
+    for scans, tfs in streams:
+        pipe = InferencePipeline(cfg, model, "cuda")
+        single.append([pipe.push_scan(sc, tf) for sc, tf in zip(scans, tfs)])
+    return pod, got, single, launches
+
+
+def load_plan_record():
+    """{"<mode>/<seed>": per step, the JAX package's span_overflow per
+    plan} of PLAN_RECORD."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, PLAN_RECORD)) as f:
+        return {k: [r["span_overflow"] for r in rows]
+                for k, rows in json.load(f)["streams"].items()}
+
+
+def overflow_gates(gates, ref, W):
+    """One slot's span-overflow gate: its per-plan span_overflow equal to
+    the JAX package's plans' (``ref``, per step) at every step, so 0 on
+    every full-window step where the reference covers every row. Returns
+    (the steps that differ, the full-window steps where both overflow,
+    the warm-up steps where both overflow)."""
+    differ = [g["step"] for g in gates
+              if g["span_overflow_per_plan"] != ref[g["step"]]]
+    full = {g["step"]: g["span_overflow_per_plan"] for g in gates
+            if g["span_overflow"] and g["window"] == W}
+    warm = {g["step"]: g["span_overflow_per_plan"] for g in gates
+            if g["span_overflow"] and g["window"] < W}
+    return differ, full, warm
+
+
+def check_pod(name, cfg, model, streams, route, failures, refs):
+    """One mode and route of phase_pod: every slot's outputs against the
+    single-stream pipeline's bit for bit (bf16: unless two single-stream
+    runs differ, then the slots' point logits within that difference), the
+    gates (``refs``: each slot's stream's span_overflow in the JAX
+    package's plans, per step), and the launches. Returns (the pod, its
+    readings)."""
+    W = cfg.model.n_past_steps
+    pod, got, single, launches = pod_against_single(cfg, model, streams)
+    equal = [all(outputs_equal(g, r) for g, r in zip(gs, rs))
+             for gs, rs in zip(got, single)]
+    diff = [max(logits_diff(g, r) for g, r in zip(gs, rs))
+            for gs, rs in zip(got, single)]
+    read = dict(equal=equal, logits_max_abs=diff, launches=launches)
+    if not all(equal):
+        if route == "float32":
+            failures.append(f"pod {name} {route}: slots equal the single "
+                            f"stream {equal}, point logits {diff}")
+        else:
+            spread = []
+            for (scans, tfs), first in zip(streams, single):
+                pipe = InferencePipeline(cfg, model, "cuda")
+                spread.append(max(logits_diff(pipe.push_scan(sc, tf), r)
+                                  for sc, tf, r in zip(scans, tfs, first)))
+            read["single_vs_single"] = spread
+            if any(d > s for d, s in zip(diff, spread)):
+                failures.append(f"pod {name} {route}: point logits {diff} "
+                                f"beyond two single-stream runs' {spread}")
+    # capacity drops gated at 0 at every step of every slot; span
+    # overflow gated at every step of every slot against the JAX package's
+    # plans on the same stream: 0 on every full-window step where they
+    # cover every row (all of seed 0's, as on the main path); where the
+    # reference's own plan budgets leave rows uncovered (seed 1, ROADMAP
+    # Queue 3) the port leaves the same rows
+    warm, full_ovf, gates_ok = {}, {}, True
+    for i, gs in enumerate(got):
+        gates = [step_gates(t, W, o) for t, o in enumerate(gs)]
+        differ, full_ovf[i], warm[i] = overflow_gates(gates, refs[i], W)
+        bad = [g for g in gates if g["dropped"]]
+        if bad or differ:
+            gates_ok = False
+            failures.append(f"pod {name} {route} slot {i}: capacity drops "
+                            f"{bad}; span_overflow differs from the JAX "
+                            f"package's plans at steps {differ}")
+    read["warm_span_overflow"] = warm
+    read["full_window_span_overflow"] = full_ovf
+    want = SPAN_CONVS_PER_STEP * len(streams) * len(streams[0][0])
+    if launches["main"] != want or not launches["slots"]:
+        failures.append(f"pod {name} {route}: span-conv launches "
+                        f"{launches}, not {want}")
+    print(f"pod, {name}, {route}, S={len(streams)}: slots equal the "
+          f"single-stream pipeline bit for bit {equal}, point logits max abs "
+          f"{diff}, single vs single {read.get('single_vs_single', 'not run')}"
+          f"; capacity drops 0 at every step and span_overflow per plan "
+          f"equal to the JAX package's plans at every step of every slot: "
+          f"{gates_ok}; full-window steps where both overflow, by slot "
+          f"{full_ovf}; warm-up {warm}; span-conv launches "
+          f"{launches}")
+    return pod, read
+
+
+def buffers_of(pipe):
+    return {k: (v.clone() if isinstance(v, torch.Tensor) else
+                {q: w.clone() for q, w in v.items()})
+            for k, v in pipe._buf.items()}
+
+
+def buffers_equal(a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else
+        all(torch.equal(a[k][q], b[k][q]) for q in a[k]) for k in a)
+
+
+def pod_rate(cfg, model, S, record):
+    """Aggregate scans/s of a pod of S slots on the card over the ref-exact
+    streams of seeds 0 .. S - 1: the host clock around
+    POD_TIMED steps after POD_WARM, one fence at the end; on the timed
+    steps, capacity drops gated at 0 and the span overflow per plan at the
+    JAX package's plans' (``record``); the peak device memory of the run
+    (model included)."""
+    W = cfg.model.n_past_steps
+    streams = [make_stream(cfg, POD_WARM + POD_TIMED, seed=i)
+               for i in range(S)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pod = PodInferencePipeline(cfg, model, ["cuda"], slots_per_device=S)
+    outs = []
+    for t in range(POD_WARM + POD_TIMED):
+        if t == POD_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        outs.append(pod.push_scans([sc[t] for sc, _ in streams],
+                                   [tf[t] for _, tf in streams]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    gates = [[step_gates(t, W, pod_slot(o, i)) for i in range(S)]
+             for t, o in enumerate(outs[POD_WARM:], POD_WARM)]
+    bad = [g for row in gates for g in row if g["dropped"]]
+    differ = [f"{g['step']}/{i}" for row in gates for i, g in enumerate(row)
+              if g["span_overflow_per_plan"]
+              != record[f"ref-exact/{i}"][g["step"]]]
+    if bad or differ:
+        raise AssertionError(f"pod S={S}: capacity drops on timed steps "
+                             f"{bad}; span_overflow differs from the JAX "
+                             f"package's plans at (step/slot) {differ}")
+    # where the reference's own plan budgets leave rows uncovered (the
+    # decoder L2 plan on steps 15-19 of seed 0, ROADMAP Queue 3), the
+    # timed steps include them: read, per step and slot
+    ovf = {f"{g['step']}/{i}": g["span_overflow_per_plan"]
+           for row in gates for i, g in enumerate(row) if g["span_overflow"]}
+    return dict(S=S, seconds=dt, scans_per_s=S * POD_TIMED / dt,
+                step_ms=dt / POD_TIMED * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                span_overflow=ovf)
+
+
+def phase_pod(card, cfg, params, state, model):
+    """Multi-stream (pod) inference on the card, at the full default Config
+    with ``init_params(cfg, rng(0))`` weights.
+
+    1. Ref-exact: 2 slots on make_stream seeds 0 and 1 (12 scans each),
+       each slot against a single-stream pipeline on its stream, in bf16
+       (the span-kernel launches of this run are the phase's
+       ``launches_pod``) and in float32 (equal bit for bit).
+    2. Fixed-frame incremental: the same on make_fixed_frame_stream seeds
+       0 and 1 (its launches added to ``launches_pod``); a rotated
+       transform raises ValueError; then one step with slot 1 idle leaves
+       its window and caches untouched.
+    3. Gates: capacity drops 0 at every step of every slot; span overflow
+       per plan equal at every step of every slot to the JAX package's
+       plans on the same stream (PLAN_RECORD), so 0 on every full-window
+       step where those cover every row (all of seed 0's); the steps where
+       the reference's own plan budgets leave rows uncovered (seed 1's
+       full-window steps) are printed with the warm-up counts.
+    4. A first reading, not a benchmark: aggregate scans/s at S = 1, 2, 4
+       over 20 steps of the ref-exact streams, the timed steps gated as in
+       3; they include steps where the reference's decoder L2 budget
+       leaves rows uncovered (steps 15-19 of seed 0), printed.
+    5. predict_mos --pod --slots_per_device 2 on phase_cli's two sequences
+       in float32: its labels equal the serial CLI's byte for byte.
+    Any failed check raises after the readings are printed."""
+    failures, read = [], {}
+    record = load_plan_record()
+    cfg32 = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, compute_dtype="float32"))
+    model32 = make_model(cfg32, params, state, "cuda")
+    launches = {"main": 0, "slots": 0}
+    for name, fixed in (("ref-exact", False), ("fixed-frame", True)):
+        for route, c, m in ((cfg.runtime.compute_dtype, cfg, model),
+                            ("float32", cfg32, model32)):
+            c = incremental_config(c) if fixed else c
+            if fixed:
+                streams = [make_fixed_frame_stream(c, N_SCANS + 1, seed=s)
+                           for s in (0, 1)]
+                extra = [(sc[-1], tf[-1]) for sc, tf, _ in streams]
+                streams = [(sc[:-1], tf[:-1]) for sc, tf, _ in streams]
+            else:
+                streams = [make_stream(c, N_SCANS, seed=s) for s in (0, 1)]
+            pod, r = check_pod(name, c, m, streams, route, failures,
+                               [record[f"{name}/{s}"] for s in (0, 1)])
+            read[f"{name} {route}"] = r
+            if route != "float32":
+                launches = {k: v + r["launches"][k]
+                            for k, v in launches.items()}
+            if fixed and route != "float32":
+                rot = np.eye(4, dtype=np.float32)
+                rot[:2, :2] = [[np.cos(0.05), -np.sin(0.05)],
+                               [np.sin(0.05), np.cos(0.05)]]
+                try:
+                    pod.push_scans([extra[0][0], extra[1][0]], [None, rot])
+                    failures.append("pod fixed-frame: a rotated transform "
+                                    "did not raise")
+                except ValueError as e:
+                    print(f"pod, fixed-frame: a rotated transform raises "
+                          f"ValueError: {e}")
+                before = [buffers_of(p) for p in pod.slots]
+                pod.push_scans([extra[0][0], None], [extra[0][1], None])
+                after = [buffers_of(p) for p in pod.slots]
+                idle_ok = buffers_equal(before[1], after[1]) and not \
+                    buffers_equal(before[0], after[0])
+                read["idle_slot_untouched"] = idle_ok
+                print(f"pod, fixed-frame: one step with slot 1 idle leaves "
+                      f"its window and caches untouched, slot 0 stepped: "
+                      f"{idle_ok}")
+                if not idle_ok:
+                    failures.append("pod: the idle slot's window changed")
+            del pod
+    read["launches"] = launches
+    rates = [pod_rate(cfg, model, S, record) for S in POD_SLOTS]
+    read["rates"] = rates
+    print(f"pod aggregate scans/s (first reading, not a benchmark; ref-exact "
+          f"stream, bf16, {POD_TIMED} timed steps after {POD_WARM}, host "
+          f"clock, one fence) on {card}: " + ", ".join(
+              f"S={r['S']} {r['scans_per_s']:.3f} scans/s ({r['step_ms']:.1f}"
+              f" ms a pod step, peak {r['peak_gib']:.2f} GiB)" for r in rates)
+          + "; timed-step span_overflow per plan (step/slot) "
+          + json.dumps({r["S"]: r["span_overflow"] for r in rates}))
+
+    # the CLI, float32, against the serial CLI
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase_pod_", dir=os.path.join(here, "runs"))
+    try:
+        root = os.path.join(work, "kitti")
+        SR.write_sequences(root, cfg32, N_SCANS, 0)
+        ckpt = os.path.join(work, "ckpt")
+        save_checkpoint_from_trees(ckpt, cfg32, params, state)
+        seqs = [str(q) for q, _ in SR.SEQUENCES.values()]
+        base = ["--ckpt", ckpt, "--data_path", root, "--sequences", *seqs]
+        serial = predict_mos.main(base + ["--out", os.path.join(work, "a")])
+        podcli = predict_mos.main(base + ["--out", os.path.join(work, "b"),
+                                          "--pod", "--slots_per_device", "2"])
+        sub = os.path.join(cfg32.experiment_id, "mos_preb", "sequences")
+        n_files = n_same = 0
+        for q in seqs:
+            d = os.path.join(sub, f"{int(q):02d}", "predictions")
+            for name in sorted(os.listdir(os.path.join(work, "a", d))):
+                with open(os.path.join(work, "a", d, name), "rb") as fa, \
+                        open(os.path.join(work, "b", d, name), "rb") as fb:
+                    n_same += fa.read() == fb.read()
+                n_files += 1
+        wave = podcli["waves"][0]
+        read["cli"] = dict(files=n_files, equal=n_same, serial=serial,
+                           pod=podcli)
+        print(f"pod CLI (float32, --pod --slots_per_device 2, sequences "
+              f"{seqs}): {n_same} of {n_files} .label files equal the serial "
+              f"CLI's byte for byte; {wave['scans']} scans in "
+              f"{wave['seconds']:.2f} s = {wave['scans'] / wave['seconds']:.3f}"
+              f" scans/s aggregate beside the serial "
+              f"{serial['scans'] / serial['seconds']:.3f} on {card}")
+        if n_files != len(seqs) * N_SCANS or n_same != n_files:
+            failures.append(f"pod CLI: {n_same} of {n_files} label files "
+                            "equal the serial CLI's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        raise AssertionError("phase_pod: " + " | ".join(failures))
+    return read
+
+
+def phase_dp(card):
+    """Data-parallel training on the card: ``cli/train`` under torchrun
+    (``--standalone --nproc_per_node 1``: NCCL, world 1, so process-group
+    setup, replicate, shard_batch and the gradient all-reduce run on the
+    card) for 1 epoch at small_config(), batch 2, float32, then the same
+    command twice without torchrun; every run in torch's deterministic mode
+    (DP_PRELUDE). The final parameters and BN state (each run's ``last``
+    checkpoint): the DP run may differ from either plain run by no more
+    than the two plain runs differ from each other."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase_dp_", dir=os.path.join(here, "runs"))
+    try:
+        root = os.path.join(work, "kitti")
+        write_synthetic_sequence(root, seq=0, n_scans=6, seed=3,
+                                 n_ground=400, n_per_obj=40)
+        scfg = small_config()
+        scfg = dataclasses.replace(
+            scfg, data=dataclasses.replace(scfg.data, split_train=(0,),
+                                           split_val=(0,), num_workers=2),
+            train=dataclasses.replace(scfg.train, batch_size=2))
+        cfg_path = os.path.join(work, "cfg.yaml")
+        with open(cfg_path, "w") as fh:
+            json.dump(scfg.to_dict(), fh)
+        env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        prelude = [sys.executable, "-c", DP_PRELUDE]
+        torchrun = [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc_per_node", "1", "--no-python"]
+        states, secs = {}, {}
+        for name, cmd in (("dp", torchrun + prelude), ("plain 1", prelude),
+                          ("plain 2", prelude)):
+            out = os.path.join(work, name.replace(" ", "_"))
+            args = ["--config", cfg_path, "--data", root, "--out", out,
+                    "--epochs", "1"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd + args, env=env, cwd=here, text=True,
+                                  capture_output=True, timeout=600)
+            secs[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase_dp {name}: rc {proc.returncode}"
+                                     f"\n{proc.stdout[-3000:]}\n"
+                                     f"{proc.stderr[-3000:]}")
+            states[name] = torch.load(
+                os.path.join(out, "ckpt", "last", "model.pt"),
+                map_location="cpu", weights_only=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def diff(a, b):
+        sa, sb = states[a]["model"], states[b]["model"]
+        return max(float((sa[k].double() - sb[k].double()).abs().max())
+                   for k in sa if sa[k].is_floating_point())
+
+    spread = diff("plain 1", "plain 2")
+    dp = [diff("dp", "plain 1"), diff("dp", "plain 2")]
+    steps = {k: v["step"] for k, v in states.items()}
+    print(f"phase_dp: cli/train 1 epoch at small_config, batch 2, float32, "
+          f"deterministic mode; torchrun world 1 (NCCL) vs plain runs: "
+          f"parameters and BN state max abs diff dp-plain1 {dp[0]:.3g}, "
+          f"dp-plain2 {dp[1]:.3g}, plain1-plain2 {spread:.3g}; steps "
+          f"{steps}; seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
+          f" on {card}")
+    if max(dp) > spread or len(set(steps.values())) != 1:
+        raise AssertionError(f"phase_dp: the DP run differs by {dp} beyond "
+                             f"the plain runs' spread {spread}, steps {steps}")
+    return dict(dp_vs_plain=dp, plain_spread=spread, steps=steps,
+                seconds=secs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--details", help="write run details to this JSON file")
@@ -1032,6 +1428,7 @@ def main() -> int:
     step_ms, gates, launches, full = phase_main(cfg, model, scans, tfs)
     inc = phase_incremental(cfg, model)
     cli = phase_cli(card)
+    pod = phase_pod(card, cfg, params, state, model)
 
     med = statistics.median(step_ms[i] for i in full)
     print(f"step time (first reading, not a benchmark): median {med:.1f} ms "
@@ -1049,6 +1446,7 @@ def main() -> int:
     probe_entries, probes = phase_probes()
     micro_entries, probes["micro"] = phase_micro()
     train = phase_train(card)
+    dp = phase_dp(card)
     print(f"device_ms profiler sessions: {tools.SESSIONS['whole']} whole, "
           f"{tools.SESSIONS['short']} short and run again, "
           f"{tools.SESSIONS['events']} calls timed by CUDA events instead")
@@ -1067,7 +1465,9 @@ def main() -> int:
          # predict_mos over both full-config sequences
          "launches_cli": cli["launches"][key],
          # the training slice: the validation passes of cli/train
-         "launches_train": train["launches"][key]}
+         "launches_train": train["launches"][key],
+         # pod inference: 2 slots x 12 steps in each mode, bf16
+         "launches_pod": pod["launches"][key]}
         for (name, rep), key in zip(KERNELS, ("main", "slots"))
     ] + probe_entries + micro_entries}
     if args.details:
@@ -1077,7 +1477,7 @@ def main() -> int:
             json.dump(dict(card=card, report=report, classes=classes,
                            step_ms=step_ms, gates=gates, ref_err=ref_err,
                            incremental=inc, incremental_ref_err=inc_ref_err,
-                           cli=cli, train=train,
+                           cli=cli, train=train, pod=pod, dp=dp,
                            probes=probes), fh, indent=1)
     for name, c in sorted(list(classes.items()) + [
             ("(incremental) " + k, v) for k, v in inc["classes"].items()]):

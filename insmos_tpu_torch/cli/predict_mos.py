@@ -6,9 +6,11 @@ flags and the same artifact tree.
 
 Every scan of each sequence gets mos/.label + confidence/.npy + bbox/.npy
 artifacts (utils/io.py); the growing-window warm-up covers the first N-1
-scans. ``--ckpt`` is a port checkpoint (utils/checkpoint.py). The run is on
-the card unless ``--device`` names another device; this flag is the only
-one the JAX CLI lacks. Without a checkpoint the weights are random, from
+scans. ``--pod [--slots_per_device S]`` streams the sequences in
+lockstep, S on each device (every visible card unless ``--device`` names
+one), and writes the same artifacts. ``--ckpt`` is a port checkpoint
+(utils/checkpoint.py). The run is on the card unless ``--device`` names
+another device; this flag is the only one the JAX CLI lacks. Without a checkpoint the weights are random, from
 ``utils.params.init_params(cfg, numpy.random.default_rng(seed))``: the JAX
 CLI draws its own with ``jax.random.PRNGKey(seed)``, which the port cannot
 reproduce, so parity between the two always goes through a checkpoint of
@@ -27,7 +29,7 @@ import numpy as np
 from ..config import Config
 from ..data.kitti import lidar_poses_from_files, load_files, read_point_cloud
 from ..data.loader import prefetch_map
-from ..pipeline import InferencePipeline
+from ..pipeline import InferencePipeline, PodInferencePipeline, framed_scans
 from ..utils.checkpoint import load_checkpoint
 from ..utils.io import artifact_dirs, write_scan_artifacts
 from ..utils.params import init_params, make_model
@@ -48,8 +50,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0, help="init seed when no ckpt")
     p.add_argument(
         "--pod", action="store_true",
-        help="stream sequences in lockstep, one per device (not ported "
-        "yet: exits with an error)",
+        help="stream sequences in lockstep, slots_per_device streams on "
+        "each device (pod inference; every visible card, or --device)",
     )
     p.add_argument(
         "--slots_per_device", type=int, default=1,
@@ -91,12 +93,78 @@ def build_model(args):
     return cfg, make_model(cfg, params, state, args.device)
 
 
+def _sequence_inputs(args, cfg, seq):
+    """(scan files, lidar poses or None) of one sequence."""
+    seq_dir = os.path.join(args.data_path, f"{int(seq):02d}")
+    files = [f for f in load_files(os.path.join(seq_dir, "velodyne"))
+             if f.endswith(args.ext)]
+    poses = None
+    if cfg.data.transform:
+        poses = lidar_poses_from_files(
+            os.path.join(seq_dir, cfg.data.poses_file),
+            os.path.join(seq_dir, "calib.txt"))
+    return files, poses
+
+
+def _run_pod(args, cfg, model, sequences) -> dict:
+    """Streaming multi-sequence pod inference: the sequences in waves of
+    S = n_slots, one scan per sequence per step, a slot idle once its
+    sequence has ended. Each slot reads and frames its sequence as the
+    serial run does (prefetched reads, ``pipeline.framed_scans``; with
+    --fixed-frame the incremental stem streams in every slot), and each
+    pod step is queued before the previous step's outputs are fetched.
+    Each slot writes the serial run's artifacts."""
+    devices = None if args.device == "cuda" else [args.device]
+    pipe = PodInferencePipeline(cfg, model, devices,
+                                max(1, int(args.slots_per_device)))
+    S = pipe.n_slots
+    vox = cfg.data.voxel_size[0]
+    stats = {"scans": 0, "seconds": 0.0, "waves": []}
+    for w0 in range(0, len(sequences), S):
+        wave = sequences[w0:w0 + S]
+        inputs = [_sequence_inputs(args, cfg, seq) for seq in wave]
+        dirs = [artifact_dirs(args.out, cfg.experiment_id, seq)
+                for seq in wave]
+        n_steps = max(len(files) for files, _ in inputs)
+        pipe.reset()
+        t0 = time.perf_counter()
+        streams = [framed_scans(prefetch_map(
+            read_point_cloud, files, num_workers=cfg.data.num_workers),
+            poses, args.fixed_frame, vox) for files, poses in inputs]
+        prev = None
+        for t in range(n_steps):
+            scans, tfs = [None] * S, [None] * S
+            for i, stream in enumerate(streams):
+                scans[i], tfs[i] = next(stream, (None, None))
+            out = pipe.push_scans(scans, tfs)
+            if prev is not None:
+                _write_pod_step(pipe, dirs, *prev)
+            prev = (t, out, [None if sc is None else len(sc)
+                             for sc in scans])
+        if prev is not None:
+            _write_pod_step(pipe, dirs, *prev)
+        dt = time.perf_counter() - t0
+        n_scans = sum(len(files) for files, _ in inputs)
+        stats["scans"] += n_scans
+        stats["seconds"] += dt
+        stats["waves"].append({"sequences": [int(q) for q in wave],
+                               "scans": n_scans, "seconds": dt})
+        print(f"pod wave {wave}: {n_scans} scans in {dt:.1f}s "
+              f"({n_scans / max(dt, 1e-9):.2f} scans/s aggregate)")
+    return stats
+
+
+def _write_pod_step(pipe, dirs, t, out, n_raw):
+    """Step ``t``'s artifacts for every slot that stepped (``n_raw`` its
+    scan's point count, None where the slot idled)."""
+    for i, d in enumerate(dirs):
+        if n_raw[i] is not None:
+            o = pipe.fetch(out, i, n_raw[i])
+            write_scan_artifacts(d, t, o["point_logits"], o["boxes"],
+                                 o["scores"], o["labels"])
+
+
 def run(args) -> dict:
-    if args.pod:
-        raise SystemExit(
-            "predict_mos: --pod (multi-device pod inference) is not ported "
-            "yet; it waits for data parallelism (ROADMAP Queue 1 item 6)."
-        )
     cfg, model = build_model(args)
 
     sequences = args.sequences
@@ -109,21 +177,13 @@ def run(args) -> dict:
             runtime=dataclasses.replace(cfg.runtime, incremental_stem=True),
         )
 
+    if args.pod:
+        return _run_pod(args, cfg, model, list(sequences))
+
     pipe = InferencePipeline(cfg, model, args.device)
     stats = {"scans": 0, "seconds": 0.0, "per_sequence": []}
     for seq in sequences:
-        seq_dir = os.path.join(args.data_path, f"{int(seq):02d}")
-        files = [
-            f
-            for f in load_files(os.path.join(seq_dir, "velodyne"))
-            if f.endswith(args.ext)
-        ]
-        poses = None
-        if cfg.data.transform:
-            poses = lidar_poses_from_files(
-                os.path.join(seq_dir, cfg.data.poses_file),
-                os.path.join(seq_dir, "calib.txt"),
-            )
+        files, poses = _sequence_inputs(args, cfg, seq)
         dirs = artifact_dirs(args.out, cfg.experiment_id, seq)
         full0 = pipe.n_full_steps
         t0 = time.perf_counter()

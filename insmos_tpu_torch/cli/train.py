@@ -10,7 +10,19 @@ imports, TensorBoard.
       [--device cuda|cpu]
 
 Runs on one device, the card unless ``--device`` names another; a batch of
-B samples is one optimizer update. Without ``--weights``/``--checkpoint``
+B samples is one optimizer update. Under torchrun it is data-parallel, one
+process per device:
+
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m insmos_tpu_torch.cli.train ...
+
+Each rank runs on ``cuda:LOCAL_RANK`` (or the device ``--device`` names,
+gloo between CPU processes), builds the same global batch from the same
+seed and trains on its contiguous shard of it (``parallel.shard_batch``),
+with the gradients all-reduced once a step; B must be a multiple of the
+ranks that take a shard (``parallel.data_world_for_batch``). Only rank 0
+logs, prints and writes checkpoints; a resume restores the same state on
+every rank. Without ``--weights``/``--checkpoint``
 the weights are ``utils.params.init_params(cfg, default_rng(seed))`` (the
 JAX CLI's ``jax.random.PRNGKey(seed)`` draws cannot be reproduced).
 Training takes the windowed engine, validation the span engine (its CUDA
@@ -32,6 +44,8 @@ from ..config import Config
 from ..data.kitti import KittiWindowDataset
 from ..data.loader import iter_batches
 from ..data.sample import to_device
+from ..parallel import (close_world, data_world_for_batch, init_world,
+                        rank_device, replicate, shard_batch)
 from ..train.metrics import iou_from_confusion
 from ..train.optim import make_optimizer
 from ..train.step import (TrainState, load_bn_state, make_bn_reestimate,
@@ -104,12 +118,24 @@ def parse_args(argv=None):
         "short schedules where the reference momenta cannot converge the "
         "running statistics (see train/step.make_bn_reestimate)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (default: the card)")
+                   help="torch device to run on (default: the card; under "
+                   "torchrun cuda:LOCAL_RANK)")
     return p.parse_args(argv)
 
 
 def run(args) -> TrainState:
-    device = setup_device(args.device)
+    """Trains as the arguments say; under torchrun's environment as one
+    rank of a data-parallel world, whose process group is closed on the
+    way out."""
+    device = setup_device(rank_device(args.device))
+    world = init_world(device)
+    try:
+        return _train(args, device, world)
+    finally:
+        close_world(world)
+
+
+def _train(args, device, world) -> TrainState:
     cfg = Config.from_yaml(args.config) if args.config else Config()
     if args.batch_size:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
@@ -119,6 +145,7 @@ def run(args) -> TrainState:
     val_ds = KittiWindowDataset(cfg, "val", root_dir=args.data)
     bsz = cfg.train.batch_size
     steps_per_epoch = max(1, len(train_ds) // bsz)
+    world = data_world_for_batch(world, bsz)
 
     opt_state, step0 = None, 0
     if args.checkpoint:
@@ -134,13 +161,23 @@ def run(args) -> TrainState:
         optimizer.load_state_dict(opt_state["optimizer"])
         scheduler.load_state_dict(opt_state["scheduler"])
     start_epoch = step0 // steps_per_epoch
+    replicate(world, model)
     ts = TrainState(model, optimizer, scheduler, step0)
-    train_step = make_train_step(model)
-    eval_step = make_eval_step(model)
-    bn_step = make_bn_reestimate(model) if args.bn_reest else None
-    logger = ScalarLogger(args.out)
-    ckpt_mgr = best_checkpoint_manager(os.path.join(args.out, "ckpt"))
+    train_step = make_train_step(model, world)
+    eval_step = make_eval_step(model, world)
+    bn_step = make_bn_reestimate(model, world) if args.bn_reest else None
+    main = world.is_main
+    logger = ScalarLogger(args.out) if main else None
+    ckpt_mgr = (best_checkpoint_manager(os.path.join(args.out, "ckpt"))
+                if main else None)
     workers = cfg.data.num_workers
+
+    def log(**scalars):
+        if main:
+            logger.log(ts.step, **scalars)
+
+    def shard(batch):
+        return to_device(shard_batch(world, batch), device)
 
     max_epoch = args.epochs or cfg.train.max_epoch
     for epoch in range(start_epoch, max_epoch):
@@ -150,23 +187,21 @@ def run(args) -> TrainState:
         for i, batch in enumerate(iter_batches(
                 train_ds, bsz, cfg.data.shuffle, seed=args.seed + epoch,
                 num_workers=workers)):
-            ts, metrics = train_step(ts, to_device(batch, device))
+            ts, metrics = train_step(ts, shard(batch))
             cm += metrics["confusion"].cpu().numpy()
             if i % args.log_every == 0:
-                logger.log(ts.step, train_loss=metrics["loss"],
-                           cls_loss=metrics["cls_loss"],
-                           box_loss=metrics["box_loss"],
-                           mos_loss=metrics["mos_loss"],
-                           motion_loss=metrics["motion_loss"])
+                log(train_loss=metrics["loss"], cls_loss=metrics["cls_loss"],
+                    box_loss=metrics["box_loss"], mos_loss=metrics["mos_loss"],
+                    motion_loss=metrics["motion_loss"])
         train_iou = float(iou_from_confusion(cm)[2])
-        logger.log(ts.step, train_mos_iou_step=train_iou)
+        log(train_mos_iou_step=train_iou)
 
         if bn_step is not None:
             total, k = None, 0
             for batch in iter_batches(train_ds, bsz, cfg.data.shuffle,
                                       seed=args.seed * 7919 + epoch,
                                       num_workers=workers):
-                sb = bn_step(to_device(batch, device))
+                sb = bn_step(shard(batch))
                 total = sb if total is None else {
                     n: total[n] + v for n, v in sb.items()}
                 k += 1
@@ -179,7 +214,7 @@ def run(args) -> TrainState:
         rec = {}
         for batch in iter_batches(val_ds, bsz, shuffle=False,
                                   num_workers=workers):
-            m = eval_step(to_device(batch, device))
+            m = eval_step(shard(batch))
             vcm += m["confusion"].cpu().numpy()
             for key, v in m.items():
                 if key.startswith(("rcnn", "gt")):
@@ -194,12 +229,14 @@ def run(args) -> TrainState:
                 name = int(round(float(key[5:]) * 10))
                 recall[f"recall_rcnn_{name}"] = v / gt_num
                 recall[f"recall_roi_{name}"] = 0.0
-        logger.log(ts.step, val_mos_iou_step=val_iou, **recall)
-        print(f"epoch {epoch}: train_iou={train_iou:.4f} "
-              f"val_iou={val_iou:.4f} ({time.perf_counter() - t0:.0f}s)")
-        ckpt_mgr.save(cfg, model, optimizer_state(optimizer, scheduler),
-                      ts.step, val_iou)
-    logger.close()
+        log(val_mos_iou_step=val_iou, **recall)
+        if main:
+            print(f"epoch {epoch}: train_iou={train_iou:.4f} "
+                  f"val_iou={val_iou:.4f} ({time.perf_counter() - t0:.0f}s)")
+            ckpt_mgr.save(cfg, model, optimizer_state(optimizer, scheduler),
+                          ts.step, val_iou)
+    if main:
+        logger.close()
     return ts
 
 

@@ -266,9 +266,12 @@ class KittiWindowDataset:
             meta=(seq, scan_idx, past))
 
     def _getitem_unlabelled(self, seq, scan_idx, past, files):
-        """Label-free window: each scan read, cut to the point capacity and
-        pose-aligned in float32 straight into the padded buffer (the
-        arrays of the reference's native loader's numpy route)."""
+        """Label-free window: the native loader reads the scans in
+        parallel, cuts each to the point capacity and pose-aligns it in
+        float32 straight into the padded buffer (as the reference's
+        ``_getitem_native``)."""
+        from .. import native
+
         cap = self.cfg.runtime.max_points_per_scan
         n = len(files)
         if self.cfg.data.transform:
@@ -277,18 +280,14 @@ class KittiWindowDataset:
                             for i in past]).astype(np.float32)
         else:
             tfs = np.stack([np.eye(4, dtype=np.float32)] * n)
+        buf, counts = native.load_window(files, tfs, cap)
         W = self.slots
         points = np.zeros((W, cap, 4), np.float32)
         num_points = np.zeros((W,), np.int32)
         scan_mask = np.zeros((W,), bool)
-        for j, (f, tf) in enumerate(zip(files, tfs)):
-            pts = self.cache.get((f, "pc"), lambda f=f: read_point_cloud(f))
-            pts = pts[:cap]
-            slot = W - n + j
-            points[slot, :len(pts), :3] = pts[:, :3] @ tf[:3, :3].T + tf[:3, 3]
-            points[slot, :len(pts), 3] = pts[:, 3]
-            num_points[slot] = len(pts)
-            scan_mask[slot] = True
+        points[W - n:] = buf
+        num_points[W - n:] = counts
+        scan_mask[W - n:] = True
         return WindowSample(
             points=points, num_points=num_points, scan_mask=scan_mask,
             labels=np.zeros((W, cap), np.int32),

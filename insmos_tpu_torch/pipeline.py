@@ -19,10 +19,15 @@ scans and runs the model. Two modes, as in the reference:
   counted in ``n_full_steps``.
 
 The pipeline runs on the card unless ``device`` names the CPU.
+
+:class:`PodInferencePipeline` streams S sequences in lockstep, one
+single-stream pipeline a slot, the slots spread over the devices given
+(every visible card by default).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Iterator
 
 import numpy as np
@@ -52,6 +57,43 @@ def fixed_frame_transform(scan: np.ndarray, pose: np.ndarray,
     if prev_snap is not None:
         tf[:3, 3] = prev_snap - snap
     return out, tf, snap
+
+
+def framed_scans(scans: Iterator[np.ndarray], poses: np.ndarray | None,
+                 fixed_frame: bool = False, voxel: float = 0.1
+                 ) -> Iterator[tuple[np.ndarray, np.ndarray | None]]:
+    """(scan, tf) for each scan of a sequence, as a pipeline step takes
+    them. With ``poses``, tf = inv(pose_t) @ pose_{t-1} (the identity on the
+    first scan); with ``fixed_frame`` too, the scan is first re-expressed by
+    :func:`fixed_frame_transform` and tf is its integer-voxel step. Without
+    poses, the scan as read and no transform."""
+    prev_pose = prev_snap = None
+    for idx, scan in enumerate(scans):
+        tf = None
+        if poses is not None:
+            if fixed_frame:
+                scan, tf, prev_snap = fixed_frame_transform(
+                    scan, poses[idx], prev_snap, voxel)
+            else:
+                tf = (np.linalg.inv(poses[idx]) @ (
+                    prev_pose if prev_pose is not None else poses[idx]
+                )).astype(np.float32)
+                prev_pose = poses[idx]
+        yield scan, tf
+
+
+def voxel_translation(tf: np.ndarray, voxel: float):
+    """The incremental mode's check of a step transform: a rotation within
+    1e-5 of the identity and a translation within 1e-3 voxel of an integer
+    k give (the snapped transform, the cache shift -k as int32); any other
+    transform gives None."""
+    k = np.round(tf[:3, 3] / voxel)
+    if not (np.allclose(tf[:3, :3], np.eye(3), atol=1e-5)
+            and np.allclose(tf[:3, 3] / voxel, k, atol=1e-3)):
+        return None
+    tf_snap = np.eye(4, dtype=np.float32)
+    tf_snap[:3, 3] = (k * voxel).astype(np.float32)
+    return tf_snap, (-k).astype(np.int32)
 
 
 class InferencePipeline:
@@ -90,6 +132,16 @@ class InferencePipeline:
                 "occ": torch.zeros((cap, W), dtype=torch.bool, device=dev),
             }
         self._buf = buf
+
+    def _pad(self, scan: np.ndarray):
+        """The scan in a zero-padded (capacity, 4) buffer, and its count."""
+        cap = self.cfg.runtime.max_points_per_scan
+        n_raw = len(scan)
+        if n_raw > cap:
+            raise ValueError(f"scan has {n_raw} points > capacity {cap}")
+        padded = np.zeros((cap, 4), np.float32)
+        padded[:n_raw] = scan[:, :4]
+        return padded, n_raw
 
     # -------------------------------------------------------------- step
     def _roll_window(self, buf, new_scan, n_new, tf):
@@ -146,26 +198,16 @@ class InferencePipeline:
         recovery step (counted in ``n_full_steps``)."""
         if self._buf is None:
             self.reset()
-        cap = self.cfg.runtime.max_points_per_scan
-        n_raw = len(scan)
-        if n_raw > cap:
-            raise ValueError(f"scan has {n_raw} points > capacity {cap}")
-        padded = np.zeros((cap, 4), np.float32)
-        padded[:n_raw] = scan[:, :4]
+        padded, n_raw = self._pad(scan)
         tf = np.eye(4, dtype=np.float32) if tf is None else \
             np.asarray(tf, np.float32)
         if "stem_cache" not in self._buf:
             return self._step(padded, n_raw, tf)
-        vox = self.cfg.data.voxel_size[0]
-        k = np.round(tf[:3, 3] / vox)
-        compatible = np.allclose(tf[:3, :3], np.eye(3), atol=1e-5) and \
-            np.allclose(tf[:3, 3] / vox, k, atol=1e-3)
-        if not compatible:
+        snapped = voxel_translation(tf, self.cfg.data.voxel_size[0])
+        if snapped is None:
             self.n_full_steps += 1
             return self._step(padded, n_raw, tf, full=True)
-        tf_snap = np.eye(4, dtype=np.float32)
-        tf_snap[:3, 3] = (k * vox).astype(np.float32)
-        return self._step(padded, n_raw, tf_snap, shift=(-k).astype(np.int32))
+        return self._step(padded, n_raw, *snapped)
 
     @staticmethod
     def fetch(out: dict, n_raw: int) -> dict[str, np.ndarray]:
@@ -193,26 +235,122 @@ class InferencePipeline:
         next scan's step is queued before the previous outputs are
         fetched. ``fixed_frame`` (the incremental mode's deployment):
         each scan is first re-expressed by :func:`fixed_frame_transform`,
-        so every step's transform is an integer-voxel translation."""
+        so every step's transform is an integer-voxel translation
+        (:func:`framed_scans`)."""
         self.reset()
         prev = None
-        prev_pose = None
-        prev_snap = None
-        vox = self.cfg.data.voxel_size[0]
-        for idx, scan in enumerate(scan_iter):
-            tf = None
-            if poses is not None:
-                if fixed_frame:
-                    scan, tf, prev_snap = fixed_frame_transform(
-                        scan, poses[idx], prev_snap, vox)
-                else:
-                    tf = (np.linalg.inv(poses[idx]) @ (
-                        prev_pose if prev_pose is not None else poses[idx]
-                    )).astype(np.float32)
-                    prev_pose = poses[idx]
+        for scan, tf in framed_scans(scan_iter, poses, fixed_frame,
+                                     self.cfg.data.voxel_size[0]):
             out = self.push_scan(scan, tf)
             if prev is not None:
                 yield self.fetch(*prev)
             prev = (out, len(scan))
         if prev is not None:
             yield self.fetch(*prev)
+
+
+OUT_KEYS = ("point_logits", "boxes", "scores", "labels", "box_mask",
+            "overflow")
+
+
+class PodInferencePipeline:
+    """Streaming multi-sequence inference (the port of the JAX package's
+    ``PodInferencePipeline``): S sequence streams advance in lockstep, one
+    scan per stream per step.
+
+    ``n_slots = len(devices) * slots_per_device``; slot i lives on device
+    ``i // slots_per_device``. Each device holds one model replica (the
+    first is ``model`` itself, the others deep copies), so on one card all
+    slots share the one model. ``devices`` defaults to every visible CUDA
+    device; the CPU runs only when the caller names it. Each slot is a
+    single-stream :class:`InferencePipeline` with its own ring window and,
+    in the incremental mode, its own stem cache and window site set.
+
+    A step runs each active slot's single-stream step, one slot after
+    another; the JAX package vmaps one step over the slot axis instead,
+    which gives the same outputs. In the incremental mode every active
+    slot's transform must be an integer-voxel translation (scans framed by
+    :func:`fixed_frame_transform`): the pod has no per-slot full-stem
+    recovery step, so any other transform raises ``ValueError`` before any
+    slot steps."""
+
+    def __init__(self, cfg, model: InsMOSModel, devices=None,
+                 slots_per_device: int = 1):
+        if devices is None:
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+            if not devices:
+                raise RuntimeError("no CUDA device: name the CPU "
+                                   "(devices=['cpu']) to run there")
+        self.cfg = cfg
+        self.slots_per_device = int(slots_per_device)
+        replicas = [model if j == 0 else copy.deepcopy(model)
+                    for j in range(len(devices))]
+        self.slots = [
+            InferencePipeline(cfg, replicas[i // self.slots_per_device],
+                              devices[i // self.slots_per_device])
+            for i in range(len(devices) * self.slots_per_device)]
+        self.n_slots = len(self.slots)
+        self.device = self.slots[0].device
+
+    def reset(self):
+        for slot in self.slots:
+            slot.reset()
+
+    @torch.inference_mode()
+    def push_scans(self, scans, tfs=None) -> dict:
+        """scans: S arrays (N_i, 4), or None for an idle slot; tfs: S (4, 4)
+        step transforms or None (identity). Returns the step's outputs
+        batched (S, ...) on the first device, with the single-stream keys
+        (``overflow`` a dict of (S, ...) counters); trim one slot's with
+        :meth:`fetch`. An idle slot does not step: its window is left
+        untouched and its rows are zeros with ``box_mask`` all False, which
+        no caller reads."""
+        if len(scans) != self.n_slots:
+            raise ValueError(f"{len(scans)} scans for {self.n_slots} slots")
+        vox = self.cfg.data.voxel_size[0]
+        steps = {}
+        for i, scan in enumerate(scans):
+            if scan is None:
+                continue
+            tf = (np.eye(4, dtype=np.float32)
+                  if tfs is None or tfs[i] is None
+                  else np.asarray(tfs[i], np.float32))
+            shift = None
+            if self.cfg.runtime.incremental_stem:
+                snapped = voxel_translation(tf, vox)
+                if snapped is None:
+                    raise ValueError(
+                        f"slot {i}: tf is not an integer-voxel translation; "
+                        "feed fixed_frame_transform'd scans in the "
+                        "incremental pod mode")
+                tf, shift = snapped
+            steps[i] = (*self.slots[i]._pad(scan), tf, shift)
+        if not steps:
+            raise ValueError("every slot is idle")
+        outs = {}
+        for i, args in steps.items():
+            slot = self.slots[i]
+            if slot._buf is None:
+                slot.reset()
+            outs[i] = slot._step(*args)
+        like = next(iter(outs.values()))
+        dev = self.device
+
+        def stack(get):
+            ref = get(like)
+            return torch.stack([
+                get(outs[i]).to(dev) if i in outs else
+                torch.zeros_like(ref, device=dev)
+                for i in range(self.n_slots)])
+
+        out = {k: stack(lambda o, k=k: o[k]) for k in OUT_KEYS
+               if k != "overflow"}
+        out["overflow"] = {k: stack(lambda o, k=k: o["overflow"][k])
+                           for k in like["overflow"]}
+        return out
+
+    @staticmethod
+    def fetch(out: dict, i: int, n_raw: int) -> dict[str, np.ndarray]:
+        """Slot ``i``'s outputs -> trimmed host arrays."""
+        return InferencePipeline.fetch(
+            {k: out[k][i] for k in OUT_KEYS if k != "overflow"}, n_raw)

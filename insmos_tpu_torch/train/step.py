@@ -5,7 +5,17 @@ The reference vmaps the per-sample forward over a batch, so each sample
 normalises with its own BatchNorm statistics; here the samples are looped
 over. The loss is the mean over samples (each sample's backward adds its
 share to the gradients), the new BN state the mean of the samples' new
-running statistics, and the confusion matrix their sum."""
+running statistics, and the confusion matrix their sum.
+
+Data parallelism (the JAX package's steps under a mesh with the batch
+sharded): each step takes a ``parallel.World`` and this rank's shard of the
+global batch (``parallel.shard_batch``). Each rank loops over its own
+samples with every loss divided by the global batch size, then one
+all-reduce sums the gradients (before the optimizer update, and before the
+accumulation with acc_batches > 1); the new BN state and the losses are
+means over the global batch, the confusion matrix and the recall counts
+sums. Without a process group (``World()``, the default) the collectives
+are the identity and the steps are the one-device steps."""
 
 from __future__ import annotations
 
@@ -13,7 +23,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ..nn.layers import set_bn_momentum_scale
+from ..nn.layers import collect_bn_state, set_bn_momentum_scale
+from ..parallel import World, all_reduce_grads, all_reduce_sum
 from .loss import gaussian_focal_loss, mos_loss, reg_l1_loss
 from .metrics import confusion_matrix, detection_recall
 from .optim import GradAccumulator
@@ -71,9 +82,28 @@ def sample_losses(model, sample: dict, *, train: bool):
     return total, aux, out
 
 
-def _mean_state(states):
-    return {k: torch.stack([s[k] for s in states]).mean(dim=0)
-            for k in states[0]}
+def _device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def global_batch(world: World, n: int) -> int:
+    """The global batch size of a shard of ``n`` samples: ``n`` on each of
+    the ``data_size`` ranks that take a shard (``shard_batch`` splits it
+    evenly); a rank that sits out reads the size its world was sized for
+    (``data_world_for_batch``)."""
+    B = n * world.data_size if n else world.batch_size
+    if B <= 0:
+        raise ValueError("an empty shard on a world not sized for its batch")
+    return B
+
+
+def _global_mean_state(world: World, model, states, B: int) -> dict:
+    """The mean of the samples' BN states over the global batch of ``B``
+    (a shard with no samples adds zeros)."""
+    like = collect_bn_state(model)
+    sums = [torch.stack([s[k] for s in states]).sum(dim=0) if states
+            else torch.zeros_like(v) for k, v in like.items()]
+    return {k: v / B for k, v in zip(like, all_reduce_sum(world, sums))}
 
 
 def load_bn_state(model, state: dict) -> None:
@@ -100,10 +130,11 @@ def optimizer_update(ts: TrainState, every_k: int = 1) -> bool:
     return True
 
 
-def make_train_step(model):
+def make_train_step(model, world: World = World()):
     """Returns step(ts, batch, out_hook=None) -> (ts, metrics): one
     optimizer update (or one accumulation, with acc_batches > 1) on a batch
-    of stacked tensors. Metrics are the losses' means over the samples (0-d
+    of stacked tensors (under data parallelism, this rank's shard of the
+    global batch). Metrics are the losses' means over the global batch (0-d
     tensors) and the confusion matrix's sum; ``out_hook`` sees each
     sample's model outputs (the overflow counters, say)."""
     k = model.cfg.train.acc_batches
@@ -111,71 +142,92 @@ def make_train_step(model):
     def step(ts: TrainState, batch: dict, out_hook=None):
         model.train()
         ts.optimizer.zero_grad(set_to_none=True)
-        B = batch_size(batch)
-        losses, cms, states = [], [], []
-        for i in range(B):
+        dev = _device(model)
+        n = batch_size(batch)
+        B = global_batch(world, n)
+        losses = torch.zeros(len(LOSS_KEYS), device=dev)
+        cm = torch.zeros((3, 3), dtype=torch.int64, device=dev)
+        states = []
+        for i in range(n):
             total, aux, out = sample_losses(model, sample_of(batch, i),
                                             train=True)
             if out_hook is not None:
                 out_hook(out)
             (total / B).backward()
-            losses.append(torch.stack([aux[n].detach() for n in LOSS_KEYS]))
-            cms.append(aux["confusion"])
+            losses += torch.stack([aux[key].detach() for key in LOSS_KEYS])
+            cm += aux["confusion"]
             states.append(aux["new_state"])
+        all_reduce_grads(world, model.parameters())
         optimizer_update(ts, k)
-        load_bn_state(model, _mean_state(states))
+        load_bn_state(model, _global_mean_state(world, model, states, B))
         ts.step += 1
-        mean = torch.stack(losses).mean(dim=0)
-        metrics = dict(zip(LOSS_KEYS, mean))
-        metrics["confusion"] = torch.stack(cms).sum(dim=0)
+        losses, cm = all_reduce_sum(world, [losses]) + all_reduce_sum(
+            world, [cm])
+        metrics = dict(zip(LOSS_KEYS, losses / B))
+        metrics["confusion"] = cm
         return ts, metrics
 
     return step
 
 
-def make_bn_reestimate(model):
-    """Returns step(batch) -> the batch's BN statistics (state entries,
-    averaged over its samples): train-mode forwards with every BatchNorm's
-    momentum forced to 1, so the new state IS the batch statistics. The
-    caller averages over K batches (``train --bn_reest K``): on short
-    schedules the reference's small momenta leave the running statistics
-    far from the ones the train-mode forward normalises with."""
+def make_bn_reestimate(model, world: World = World()):
+    """Returns step(batch) -> the global batch's BN statistics (state
+    entries, averaged over its samples): train-mode forwards with every
+    BatchNorm's momentum forced to 1, so the new state IS the batch
+    statistics. The caller averages over K batches (``train --bn_reest
+    K``): on short schedules the reference's small momenta leave the
+    running statistics far from the ones the train-mode forward normalises
+    with."""
     scale = model.cfg.train.bn_momentum_scale
 
     @torch.no_grad()
     def step(batch: dict):
+        n = batch_size(batch)
+        B = global_batch(world, n)
         set_bn_momentum_scale(model, 1e9)
         try:
             states = [model(sample_of(batch, i), train=True)["new_state"]
-                      for i in range(batch_size(batch))]
+                      for i in range(n)]
         finally:
             set_bn_momentum_scale(model, scale)
-        return _mean_state(states)
+        return _global_mean_state(world, model, states, B)
 
     return step
 
 
-def make_eval_step(model):
-    """Returns step(batch) -> metrics: val_loss (the MOS loss) and
-    val_motion_loss as means, the confusion matrix, and the recall counts
-    rcnn_<t> and gt as sums over the batch."""
+def make_eval_step(model, world: World = World()):
+    """Returns step(batch) -> metrics over the global batch: val_loss (the
+    MOS loss) and val_motion_loss as means, the confusion matrix, and the
+    recall counts rcnn_<t> and gt as sums."""
     thresh = model.cfg.model.post.recall_thresh_list
 
     @torch.no_grad()
     def step(batch: dict):
         model.eval()
-        rows = []
-        for i in range(batch_size(batch)):
+        dev = _device(model)
+        n = batch_size(batch)
+        B = global_batch(world, n)
+        means = ("val_loss", "val_motion_loss")
+        counts = ("confusion",) + tuple(f"rcnn_{t}" for t in thresh) + (
+            "gt",)
+        sums = {k: torch.zeros((), device=dev) for k in means}
+        # every rank sends the same shapes, an empty shard's zeros too
+        sums.update({k: torch.zeros((3, 3) if k == "confusion" else (),
+                                    dtype=torch.int64, device=dev)
+                     for k in counts})
+        for i in range(n):
             s = sample_of(batch, i)
             _, aux, out = sample_losses(model, s, train=False)
             rec = detection_recall(out["boxes"][:, :7], out["box_mask"],
                                    s["gt_boxes"], s["num_boxes"], thresh)
-            rows.append({"val_loss": aux["mos_loss"],
-                         "val_motion_loss": aux["motion_loss"],
-                         "confusion": aux["confusion"], **rec})
-        return {k: (torch.stack([r[k] for r in rows]).sum(dim=0)
-                    if k == "confusion" or k.startswith(("rcnn", "gt"))
-                    else torch.stack([r[k] for r in rows]).mean())
-                for k in rows[0]}
+            for key, v in (("val_loss", aux["mos_loss"]),
+                           ("val_motion_loss", aux["motion_loss"]),
+                           ("confusion", aux["confusion"]), *rec.items()):
+                sums[key] = sums[key] + v
+        out = dict(zip(means, (v / B for v in all_reduce_sum(
+            world, [sums[k] for k in means]))))
+        out.update(zip(counts, all_reduce_sum(world,
+                                              [sums[k] for k in counts])))
+        return out
 
     return step

@@ -441,11 +441,22 @@ def test_refine_evaluate_visualize_match_jax(cli_setup, tmp_path):
 
 
 def test_predict_mos_pod_and_default_guard(cli_setup, tmp_path):
+    """--pod (one slot on the CPU) writes the serial run's labels byte for
+    byte; a run with neither --ckpt nor --cfg_file exits."""
     base = ["--data_path", cli_setup["root"], "--out", str(tmp_path),
             "--device", "cpu"]
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
-        predict_mos.run(predict_mos.parse_args(
-            base + ["--ckpt", cli_setup["pckpt"], "--pod"]))
+    stats = predict_mos.run(predict_mos.parse_args(
+        base + ["--ckpt", cli_setup["pckpt"], "--pod", "--sequences", "8"]))
+    assert stats["scans"] == N_SCANS and stats["waves"][0]["sequences"] == [8]
+    serial = cli_setup["runs"]["port", "default"]["out"]
+    pod = os.path.join(str(tmp_path), cli_setup["cfg"].experiment_id)
+    rel = os.path.join("mos_preb", "sequences", "08", "predictions")
+    names = sorted(os.listdir(os.path.join(serial, rel)))
+    assert len(names) == N_SCANS
+    for name in names:
+        with open(os.path.join(serial, rel, name), "rb") as fa, \
+                open(os.path.join(pod, rel, name), "rb") as fb:
+            assert fa.read() == fb.read(), name
     with pytest.raises(SystemExit, match="RANDOM weights"):
         predict_mos.run(predict_mos.parse_args(base))
     assert predict_mos.parse_args([]).device == "cuda"

@@ -138,6 +138,57 @@ def test_box_class_features():
                                      torch.from_numpy(boxes)).numpy())
 
 
+def _instance_ids(pts, boxes, offset, bvalid=None):
+    """The JAX function's and the port's ids on the same float32 inputs."""
+    ref = jpib.points_in_instance_boxes(
+        jnp.asarray(pts), jnp.asarray(boxes), 3, offset,
+        None if bvalid is None else jnp.asarray(bvalid))
+    got = tpib.points_in_instance_boxes(
+        torch.from_numpy(pts), torch.from_numpy(boxes), 3, offset,
+        None if bvalid is None else torch.from_numpy(bvalid))
+    assert got.dtype == torch.int32
+    return np.asarray(ref), got.numpy()
+
+
+def test_points_in_instance_boxes_ids_and_ground_offset():
+    """The JAX package's case (tests/test_ops.py): box ids per class, the
+    ground offset lifting box centres, the max id where boxes overlap."""
+    pts = np.float32([[0.0, 0.0, 0.0], [0.0, 0.0, -0.95], [5.0, 5.0, 0.0]])
+    boxes = np.zeros((2, 8), np.float32)
+    boxes[0] = [0, 0, 0, 2, 2, 2, 0, 1]
+    boxes[1] = [5, 5, 0, 2, 2, 2, 0, 1]
+    ref, got = _instance_ids(pts, boxes, 0.1)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[:, 0], [1, 0, 2])
+    np.testing.assert_array_equal(got[:, 1:], 0)
+    boxes[1] = [0, 0, 0, 2, 2, 2, 0, 1]
+    ref, got = _instance_ids(pts, boxes, 0.0)
+    np.testing.assert_array_equal(got, ref)
+    assert got[0, 0] == 2
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_points_in_instance_boxes_random(seed):
+    """Random rotated boxes of classes -1..3 (some overlapping, some
+    masked) over random points: the ids equal the JAX function's."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-20, 20, (3000, 3)).astype(np.float32)
+    pts[:, 2] = rng.uniform(-2, 2, 3000)
+    boxes = _boxes(rng, 40, 15.0, (2.0, 10.0))
+    boxes = np.concatenate([boxes, rng.integers(-1, 4, (40, 1))], -1).astype(
+        np.float32)
+    bvalid = rng.random(40) > 0.2
+    ref, got = _instance_ids(pts, boxes, 0.3, bvalid)
+    np.testing.assert_array_equal(got, ref)
+    hit = got > 0
+    assert hit.any(axis=0).sum() == 3
+    # overlapping boxes of one class occur, and resolve to the larger id
+    inside = tpib.points_in_rotated_boxes_np(
+        pts, boxes + np.float32([0, 0, 0.3, 0, 0, 0, 0, 0]))
+    cls0 = (boxes[:, 7] == 1) & bvalid
+    assert (inside[:, cls0].sum(axis=1) > 1).any()
+
+
 def test_to_dense_bev():
     rng = np.random.default_rng(4)
     dims = (10, 8, 3)

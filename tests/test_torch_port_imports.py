@@ -127,6 +127,77 @@ def test_cli_runs_without_jax():
     assert "cli ok []" in res.stdout
 
 
+_SCALE_OUT = r"""
+import os, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["insmos_tpu"] = None
+import numpy as np
+import torch
+from insmos_tpu_torch import native
+from insmos_tpu_torch.cli import predict_mos
+from insmos_tpu_torch.config import Config
+from insmos_tpu_torch.data.sample import to_device
+from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
+from insmos_tpu_torch.ops.points_in_boxes import points_in_instance_boxes
+from insmos_tpu_torch.parallel import World, init_world, shard_batch
+from insmos_tpu_torch.pipeline import PodInferencePipeline
+from insmos_tpu_torch.train.optim import make_optimizer
+from insmos_tpu_torch.train.step import TrainState, make_train_step
+from insmos_tpu_torch.utils.checkpoint import save_checkpoint_from_trees
+from insmos_tpu_torch.utils.params import init_params, make_model
+cfg = Config().tiny(points=2048, max_voxels=1024)
+p, s = init_params(cfg, np.random.default_rng(0))
+with tempfile.TemporaryDirectory() as tmp:
+    write_synthetic_sequence(tmp, seq=8, n_scans=2, seed=0, n_ground=600,
+                             n_per_obj=40)
+    save_checkpoint_from_trees(tmp + "/ckpt", cfg, p, s)
+    stats = predict_mos.main(["--ckpt", tmp + "/ckpt", "--data_path", tmp,
+                              "--sequences", "8", "--out", tmp + "/out",
+                              "--device", "cpu", "--pod"])
+    scan = tmp + "/08/velodyne/000000.bin"
+    buf, n = native.load_window([scan], np.eye(4, dtype=np.float32)[None], 64)
+    ref, m = native.load_window_plain([scan], np.eye(4, dtype=np.float32)[None],
+                                      64)
+assert stats["scans"] == 2 and np.array_equal(buf, ref) and n[0] == 64
+pod = PodInferencePipeline(cfg, make_model(cfg, p, s, "cpu"), ["cpu"], 2)
+scans = [np.random.default_rng(i).uniform(-5, 5, (300, 4)).astype(np.float32)
+         for i in range(2)]
+out = pod.push_scans(scans)
+assert out["point_logits"].shape[0] == 2
+world = init_world("cpu")
+assert world == World()
+model = make_model(cfg, p, s, "cpu")
+ts = TrainState(model, *make_optimizer(model, cfg, 10))
+W, P = cfg.model.n_past_steps, cfg.runtime.max_points_per_scan
+rng = np.random.default_rng(0)
+batch = {"points": rng.uniform(-5, 5, (2, W, P, 4)).astype(np.float32),
+         "num_points": np.full((2, W), P // 2, np.int32),
+         "scan_mask": np.ones((2, W), bool),
+         "labels": rng.integers(0, 3, (2, W, P)).astype(np.int32),
+         "gt_boxes": np.zeros((2, cfg.model.head.max_objs, 8), np.float32),
+         "num_boxes": np.zeros(2, np.int32)}
+ts, m = make_train_step(model, world)(ts, to_device(shard_batch(world, batch),
+                                                    "cpu"))
+assert bool(torch.isfinite(m["loss"]))
+ids = points_in_instance_boxes(torch.zeros((1, 3)),
+                               torch.tensor([[0, 0, 0, 2, 2, 2, 0, 1.0]]), 3)
+assert ids.tolist() == [[1, 0, 0]]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "insmos_tpu")
+       and sys.modules[m]]
+print("scale-out ok", bad)
+assert not bad, bad
+"""
+
+
+def test_pod_dp_native_and_boxes_run_without_jax():
+    """predict_mos --pod and the pod pipeline, a train step in the world
+    of one process, the native loader and points_in_instance_boxes, with
+    jax and the JAX package blocked."""
+    res = _run(_SCALE_OUT)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "scale-out ok []" in res.stdout
+
+
 def _leaves(tree):
     return jax.tree_util.tree_flatten_with_path(tree)
 
