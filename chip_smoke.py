@@ -24,11 +24,14 @@ held against the committed JAX record
 (tests/torch_goldens/stream_record.npz, tools/stream_record.py), the
 float32 runs repeated bit for bit; then refine, and evaluate_mos on a
 synthetic sequence. The pod phase runs multi-stream inference
-(PodInferencePipeline, 2 slots on two streams of each mode, bf16 and
-float32) against single-stream pipelines bit for bit, with the gates (the
-span overflow per plan at the JAX package's own plans on the same streams,
+(PodInferencePipeline: one step vmapped over the slots, one span-kernel
+launch a conv for all slots; 2 slots on two streams of each mode, bf16 and
+float32) against single-stream pipelines, with the gates (the span
+overflow per plan at the JAX package's own plans on the same streams,
 tests/torch_goldens/plan_record.json, tests/torch_plan_record.py), an idle
-slot and a rejected rotation, reads the aggregate scans/s at S = 1, 2, 4,
+slot and a rejected rotation, holds the batched kernel against its plain
+version and against one launch a slot on every conv of a pod step, reads
+the aggregate scans/s at S = 1, 2, 4, 8 beside the single-stream step,
 and holds ``predict_mos --pod`` against the serial CLI. Then it runs
 the
 span-conv design probes (insmos_tpu_torch.tools.probe_extract, with and
@@ -78,6 +81,7 @@ from insmos_tpu_torch.config import Config
 from insmos_tpu_torch.data.kitti import load_files, read_point_cloud
 from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
 from insmos_tpu_torch.data.hdl64 import make_fixed_frame_stream, make_stream
+from insmos_tpu_torch.ops import nms as NMS
 from insmos_tpu_torch.pipeline import InferencePipeline, PodInferencePipeline
 from insmos_tpu_torch.sparse import slab as S
 from insmos_tpu_torch.sparse import span_conv as SC
@@ -132,7 +136,7 @@ SPAN_CONVS_PER_STEP = 46
 TRAIN_STEPS = 3
 # multi-stream (pod) inference: slot counts of the first scans/s reading,
 # and its warm-up and timed steps
-POD_SLOTS = (1, 2, 4)
+POD_SLOTS = (1, 2, 4, 8)
 POD_WARM = POD_TIMED = 10
 # the JAX package's span_overflow per plan on phase_pod's streams, by
 # "<mode>/<seed>" and step (tests/torch_plan_record.py)
@@ -1041,21 +1045,15 @@ def outputs_equal(a, b) -> bool:
         torch.equal(a["overflow"][k], v) for k, v in b["overflow"].items())
 
 
-def logits_diff(a, b) -> float:
-    return float((a["point_logits"] - b["point_logits"]).abs().max())
-
-
-def pod_against_single(cfg, model, streams):
-    """The streams (one (scans, tfs) a slot) through a pod of len(streams)
-    slots on the card, with the span-kernel launch counts set to 0 just
-    before and read just after, then each stream through its own
-    single-stream pipeline. Returns (the pod, its per-slot step outputs,
-    the single-stream outputs, the launches)."""
+def pod_steps(pod, streams, n):
+    """``n`` lockstep steps of the streams (one (scans, tfs) a slot)
+    through ``pod``, with the span-kernel launch counts and the NMS's host
+    copies set to 0 just before and read just after. Returns (per slot its
+    step outputs, the launches, the NMS copies)."""
     S = len(streams)
-    pod = PodInferencePipeline(cfg, model, ["cuda"], slots_per_device=S)
-    n = len(streams[0][0])
     got = [[] for _ in range(S)]
     SC.SPAN_KERNELS.reset_counts()
+    NMS.NMS_COPIES.reset_counts()
     for t in range(n):
         out = pod.push_scans([sc[t] for sc, _ in streams],
                              [tf[t] for _, tf in streams])
@@ -1064,11 +1062,32 @@ def pod_against_single(cfg, model, streams):
     torch.cuda.synchronize()
     launches = {"main": SC.SPAN_KERNELS.main_launches,
                 "slots": SC.SPAN_KERNELS.slot_launches}
-    single = []
-    for scans, tfs in streams:
-        pipe = InferencePipeline(cfg, model, "cuda")
-        single.append([pipe.push_scan(sc, tf) for sc, tf in zip(scans, tfs)])
-    return pod, got, single, launches
+    copies = {"copies": NMS.NMS_COPIES.copies,
+              "overflows": NMS.NMS_COPIES.overflows}
+    return got, launches, copies
+
+
+def slot_against_single(g, r, n_raw, tol):
+    """One slot's step against the single-stream pipeline's on the same
+    scan: (bit for bit, point logits max abs, failures). Held as
+    tools/stream_record holds the card against the JAX record: counters
+    exactly, logits within tol["logit_abs"] (and the share of points
+    beyond 1e-3), the kept boxes as many, and matched within
+    tol["box_abs"] but for tol["box_unmatched_share"] of them."""
+    e = (g["point_logits"][:n_raw] - r["point_logits"][:n_raw]).abs()
+    diff, share = float(e.max()), float((e > 1e-3).float().mean())
+    bad = [f"counter {k}" for k, v in r["overflow"].items()
+           if not torch.equal(g["overflow"][k], v)]
+    if diff > tol["logit_abs"] or share > tol["share_over_1e_3"]:
+        bad.append(f"point logits max abs {diff:.3g}, share over 1e-3 "
+                   f"{share:.3g}")
+    gb, rb = InferencePipeline.fetch(g, n_raw), InferencePipeline.fetch(r, n_raw)
+    unmatched, _ = SR.match_boxes(rb, gb, tol["box_abs"])
+    if len(gb["boxes"]) != len(rb["boxes"]) or \
+            unmatched > tol["box_unmatched_share"] * len(rb["boxes"]):
+        bad.append(f"kept boxes {len(gb['boxes'])} vs {len(rb['boxes'])}, "
+                   f"{unmatched} unmatched")
+    return outputs_equal(g, r), diff, bad
 
 
 def load_plan_record():
@@ -1096,33 +1115,42 @@ def overflow_gates(gates, ref, W):
 
 
 def check_pod(name, cfg, model, streams, route, failures, refs):
-    """One mode and route of phase_pod: every slot's outputs against the
-    single-stream pipeline's bit for bit (bf16: unless two single-stream
-    runs differ, then the slots' point logits within that difference), the
+    """One mode and route of phase_pod: a pod of len(streams) slots, the
+    launch counts and NMS copies read around its run, then each stream
+    through its own single-stream pipeline; every slot's outputs against
+    the single stream's (slot_against_single, route's TOLERANCES; float32
+    also bit for bit: a slot runs the single stream's arithmetic), the
     gates (``refs``: each slot's stream's span_overflow in the JAX
-    package's plans, per step), and the launches. Returns (the pod, its
-    readings)."""
+    package's plans, per step), 46 span-conv launches and one NMS copy a
+    pod step. Returns (the pod, its readings)."""
     W = cfg.model.n_past_steps
-    pod, got, single, launches = pod_against_single(cfg, model, streams)
-    equal = [all(outputs_equal(g, r) for g, r in zip(gs, rs))
-             for gs, rs in zip(got, single)]
-    diff = [max(logits_diff(g, r) for g, r in zip(gs, rs))
-            for gs, rs in zip(got, single)]
-    read = dict(equal=equal, logits_max_abs=diff, launches=launches)
-    if not all(equal):
-        if route == "float32":
-            failures.append(f"pod {name} {route}: slots equal the single "
-                            f"stream {equal}, point logits {diff}")
-        else:
-            spread = []
-            for (scans, tfs), first in zip(streams, single):
-                pipe = InferencePipeline(cfg, model, "cuda")
-                spread.append(max(logits_diff(pipe.push_scan(sc, tf), r)
-                                  for sc, tf, r in zip(scans, tfs, first)))
-            read["single_vs_single"] = spread
-            if any(d > s for d, s in zip(diff, spread)):
-                failures.append(f"pod {name} {route}: point logits {diff} "
-                                f"beyond two single-stream runs' {spread}")
+    S, n = len(streams), len(streams[0][0])
+    pod = PodInferencePipeline(cfg, model, ["cuda"], slots_per_device=S)
+    got, launches, copies = pod_steps(pod, streams, n)
+    tol_key = "float32" if route == "float32" else "bfloat16"
+    tol = SR.TOLERANCES[tol_key]
+    equal, diff, full_steps = [], [], []
+    for i, (scans, tfs) in enumerate(streams):
+        pipe = InferencePipeline(cfg, model, "cuda")
+        eq, d = True, 0.0
+        for t, (sc, tf) in enumerate(zip(scans, tfs)):
+            e, dt, bad = slot_against_single(got[i][t], pipe.push_scan(sc, tf),
+                                             len(sc), tol)
+            eq, d = eq and e, max(d, dt)
+            if bad:
+                failures.append(f"pod {name} {route} slot {i} step {t} vs "
+                                f"single stream: " + "; ".join(bad))
+        equal.append(eq)
+        diff.append(d)
+        full_steps.append(pipe.n_full_steps)
+    if route == "float32" and not all(equal):
+        failures.append(f"pod {name} {route}: slots equal the single "
+                        f"stream bit for bit {equal}, point logits {diff}")
+    if any(full_steps):
+        failures.append(f"pod {name} {route}: single-stream recovery steps "
+                        f"{full_steps} (the pod has none)")
+    read = dict(equal=equal, logits_max_abs=diff, launches=launches,
+                nms_copies=copies, n_full_steps=full_steps)
     # capacity drops gated at 0 at every step of every slot; span
     # overflow gated at every step of every slot against the JAX package's
     # plans on the same stream: 0 on every full-window step where they
@@ -1141,25 +1169,83 @@ def check_pod(name, cfg, model, streams, route, failures, refs):
                             f"package's plans at steps {differ}")
     read["warm_span_overflow"] = warm
     read["full_window_span_overflow"] = full_ovf
-    want = SPAN_CONVS_PER_STEP * len(streams) * len(streams[0][0])
-    if launches["main"] != want or not launches["slots"]:
+    if launches["main"] != SPAN_CONVS_PER_STEP * n or not launches["slots"]:
         failures.append(f"pod {name} {route}: span-conv launches "
-                        f"{launches}, not {want}")
-    print(f"pod, {name}, {route}, S={len(streams)}: slots equal the "
-          f"single-stream pipeline bit for bit {equal}, point logits max abs "
-          f"{diff}, single vs single {read.get('single_vs_single', 'not run')}"
-          f"; capacity drops 0 at every step and span_overflow per plan "
-          f"equal to the JAX package's plans at every step of every slot: "
-          f"{gates_ok}; full-window steps where both overflow, by slot "
-          f"{full_ovf}; warm-up {warm}; span-conv launches "
-          f"{launches}")
+                        f"{launches}, not {SPAN_CONVS_PER_STEP} a pod step")
+    if copies["copies"] != n:
+        failures.append(f"pod {name} {route}: NMS host copies {copies} in "
+                        f"{n} pod steps")
+    print(f"pod, {name}, {route}, S={S}: slots against the single-stream "
+          f"pipeline within TOLERANCES[{tol_key}]"
+          f" (counters exact), bit for bit {equal}, point logits max abs "
+          f"{diff}; single-stream n_full_steps {full_steps}; capacity drops "
+          f"0 at every step and span_overflow per plan equal to the JAX "
+          f"package's plans at every step of every slot: {gates_ok}; "
+          f"full-window steps where both overflow, by slot {full_ovf}; "
+          f"warm-up {warm}; span-conv launches {launches} in {n} pod steps; "
+          f"NMS host copies {copies}")
     return pod, read
 
 
-def buffers_of(pipe):
-    return {k: (v.clone() if isinstance(v, torch.Tensor) else
-                {q: w.clone() for q, w in v.items()})
-            for k, v in pipe._buf.items()}
+class BatchedRecorder:
+    """Records the span-kernel launches over a slot axis (the span op's
+    batching rule) of one pod step: span_conv_core_cuda's operands and
+    output."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = SC.span_conv_core_cuda
+
+    def __enter__(self):
+        def rec(x_keys, feats, wg, oc, ov, plan):
+            out = self._orig(x_keys, feats, wg, oc, ov, plan)
+            if x_keys.dim() == 2:
+                self.calls.append(((x_keys, feats, wg, oc, ov, plan), out))
+            return out
+
+        SC.span_conv_core_cuda = rec
+        return self
+
+    def __exit__(self, *exc):
+        SC.span_conv_core_cuda = self._orig
+
+
+def pod_kernel_check(cfg, model, streams):
+    """Every span conv of one full-window pod step of len(streams) slots:
+    its one batched launch against the plain version slot by slot (TOL x
+    max(1, |plain|)) and against one launch a slot, bit for bit."""
+    S, W = len(streams), cfg.model.n_past_steps
+    pod = PodInferencePipeline(cfg, model, ["cuda"], slots_per_device=S)
+    for t in range(W - 1):
+        pod.push_scans([sc[t] for sc, _ in streams],
+                       [tf[t] for _, tf in streams])
+    with BatchedRecorder() as rec:
+        pod.push_scans([sc[W - 1] for sc, _ in streams],
+                       [tf[W - 1] for _, tf in streams])
+    torch.cuda.synchronize()
+    err, rel, equal = 0.0, 0.0, True
+    for (xk, f, wg, oc, ov, plan), out in rec.calls:
+        for s in range(S):
+            p = SC._plan_of(plan.sb[s], plan.emp[s], plan.gp, plan.gs[s],
+                            SC._plan_geom(plan))
+            core = (xk[s], f[s], wg, oc[s], ov[s])
+            ref = SC.span_conv_core_plain(*core, p)
+            e = float((out[s] - ref).abs().max())
+            err = max(err, e)
+            rel = max(rel, e / max(1.0, float(ref.abs().max())))
+            equal = equal and torch.equal(out[s],
+                                          SC.span_conv_core_cuda(*core, p))
+    torch.cuda.synchronize()
+    return dict(convs=len(rec.calls), slots=S, max_abs_err=err,
+                max_rel_err=rel, equal_single_launches=equal)
+
+
+def slot_buffers(pod, i):
+    """Slot ``i``'s window and caches: its rows of the one device's
+    stacked buffer."""
+    return {k: (v[i].clone() if isinstance(v, torch.Tensor) else
+                {q: w[i].clone() for q, w in v.items()})
+            for k, v in pod._buf[0].items()}
 
 
 def buffers_equal(a, b) -> bool:
@@ -1170,55 +1256,78 @@ def buffers_equal(a, b) -> bool:
 
 def pod_rate(cfg, model, S, record):
     """Aggregate scans/s of a pod of S slots on the card over the ref-exact
-    streams of seeds 0 .. S - 1: the host clock around
-    POD_TIMED steps after POD_WARM, one fence at the end; on the timed
-    steps, capacity drops gated at 0 and the span overflow per plan at the
-    JAX package's plans' (``record``); the peak device memory of the run
-    (model included)."""
+    streams of seeds 0-3 (slot i streams seed i % 4, which the JAX plan
+    record holds): the host clock around POD_TIMED steps after POD_WARM,
+    one fence at the end; the span-kernel launches and NMS host copies a
+    pod step; on the timed steps, capacity drops gated at 0 and the span
+    overflow per plan at the JAX package's plans' (``record``); the peak
+    device memory of the run (model included). S = 0 times the
+    single-stream pipeline on seed 0's stream instead."""
     W = cfg.model.n_past_steps
-    streams = [make_stream(cfg, POD_WARM + POD_TIMED, seed=i)
-               for i in range(S)]
+    seeds = {i: make_stream(cfg, POD_WARM + POD_TIMED, seed=i)
+             for i in range(min(max(S, 1), 4))}
+    streams = [seeds[i % 4] for i in range(max(S, 1))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pod = PodInferencePipeline(cfg, model, ["cuda"], slots_per_device=S)
+    if S:
+        pod = PodInferencePipeline(cfg, model, ["cuda"], slots_per_device=S)
+        step = lambda t: pod.push_scans(  # noqa: E731
+            [sc[t] for sc, _ in streams], [tf[t] for _, tf in streams])
+    else:
+        pipe = InferencePipeline(cfg, model, "cuda")
+        step = lambda t: {k: (v[None] if k != "overflow" else  # noqa: E731
+                              {q: w[None] for q, w in v.items()})
+                          for k, v in pipe.push_scan(*(x[t] for x in
+                                                       streams[0])).items()}
     outs = []
     for t in range(POD_WARM + POD_TIMED):
         if t == POD_WARM:
             torch.cuda.synchronize()
+            SC.SPAN_KERNELS.reset_counts()
+            NMS.NMS_COPIES.reset_counts()
             t0 = time.perf_counter()
-        outs.append(pod.push_scans([sc[t] for sc, _ in streams],
-                                   [tf[t] for _, tf in streams]))
+        outs.append(step(t))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    gates = [[step_gates(t, W, pod_slot(o, i)) for i in range(S)]
+    launches = SC.SPAN_KERNELS.main_launches / POD_TIMED
+    copies = NMS.NMS_COPIES.copies / POD_TIMED
+    gates = [[step_gates(t, W, pod_slot(o, i)) for i in range(max(S, 1))]
              for t, o in enumerate(outs[POD_WARM:], POD_WARM)]
     bad = [g for row in gates for g in row if g["dropped"]]
     differ = [f"{g['step']}/{i}" for row in gates for i, g in enumerate(row)
               if g["span_overflow_per_plan"]
-              != record[f"ref-exact/{i}"][g["step"]]]
-    if bad or differ:
-        raise AssertionError(f"pod S={S}: capacity drops on timed steps "
-                             f"{bad}; span_overflow differs from the JAX "
-                             f"package's plans at (step/slot) {differ}")
+              != record[f"ref-exact/{i % 4}"][g["step"]]]
+    if bad or differ or launches != SPAN_CONVS_PER_STEP or copies != 1:
+        raise AssertionError(
+            f"pod S={S}: capacity drops on timed steps {bad}; span_overflow "
+            f"differs from the JAX package's plans at (step/slot) {differ}; "
+            f"span-conv launches a step {launches}; NMS host copies a step "
+            f"{copies}")
     # where the reference's own plan budgets leave rows uncovered (the
     # decoder L2 plan on steps 15-19 of seed 0, ROADMAP Queue 3), the
     # timed steps include them: read, per step and slot
     ovf = {f"{g['step']}/{i}": g["span_overflow_per_plan"]
            for row in gates for i, g in enumerate(row) if g["span_overflow"]}
-    return dict(S=S, seconds=dt, scans_per_s=S * POD_TIMED / dt,
-                step_ms=dt / POD_TIMED * 1e3,
+    return dict(S=S, seconds=dt, scans_per_s=max(S, 1) * POD_TIMED / dt,
+                step_ms=dt / POD_TIMED * 1e3, launches_per_step=launches,
+                nms_copies_per_step=copies,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 span_overflow=ovf)
 
 
 def phase_pod(card, cfg, params, state, model):
     """Multi-stream (pod) inference on the card, at the full default Config
-    with ``init_params(cfg, rng(0))`` weights.
+    with ``init_params(cfg, rng(0))`` weights. The pod runs one step
+    vmapped over its slots: one span-kernel launch a conv for all slots, one
+    NMS host copy a pod step.
 
     1. Ref-exact: 2 slots on make_stream seeds 0 and 1 (12 scans each),
-       each slot against a single-stream pipeline on its stream, in bf16
-       (the span-kernel launches of this run are the phase's
-       ``launches_pod``) and in float32 (equal bit for bit).
+       each slot against a single-stream pipeline on its stream (counters
+       exactly, logits and kept boxes within tools/stream_record's
+       TOLERANCES of the route, float32 bit for bit; bit for bit
+       reported), in bf16 (the
+       span-kernel launches of this run are the phase's ``launches_pod``)
+       and in float32.
     2. Fixed-frame incremental: the same on make_fixed_frame_stream seeds
        0 and 1 (its launches added to ``launches_pod``); a rotated
        transform raises ValueError; then one step with slot 1 idle leaves
@@ -1228,12 +1337,18 @@ def phase_pod(card, cfg, params, state, model):
        plans on the same stream (PLAN_RECORD), so 0 on every full-window
        step where those cover every row (all of seed 0's); the steps where
        the reference's own plan budgets leave rows uncovered (seed 1's
-       full-window steps) are printed with the warm-up counts.
-    4. A first reading, not a benchmark: aggregate scans/s at S = 1, 2, 4
-       over 20 steps of the ref-exact streams, the timed steps gated as in
-       3; they include steps where the reference's decoder L2 budget
-       leaves rows uncovered (steps 15-19 of seed 0), printed.
-    5. predict_mos --pod --slots_per_device 2 on phase_cli's two sequences
+       full-window steps) are printed with the warm-up counts; 46
+       span-conv launches and one NMS host copy a pod step.
+    4. The batched kernel: every span conv of one full-window pod step of
+       2 slots in each mode (bf16), against the plain version (TOL) and
+       against one launch a slot, bit for bit.
+    5. A first reading, not a benchmark: aggregate scans/s, pod step ms and
+       peak memory at S = 1, 2, 4, 8 over 20 steps of the ref-exact
+       streams, beside the single-stream step on the same steps, the timed
+       steps gated as in 3; they include steps where the reference's
+       decoder L2 budget leaves rows uncovered (steps 15-19 of seed 0),
+       printed.
+    6. predict_mos --pod --slots_per_device 2 on phase_cli's two sequences
        in float32: its labels equal the serial CLI's byte for byte.
     Any failed check raises after the readings are printed."""
     failures, read = [], {}
@@ -1242,6 +1357,7 @@ def phase_pod(card, cfg, params, state, model):
         cfg.runtime, compute_dtype="float32"))
     model32 = make_model(cfg32, params, state, "cuda")
     launches = {"main": 0, "slots": 0}
+    read["kernel"] = {}
     for name, fixed in (("ref-exact", False), ("fixed-frame", True)):
         for route, c, m in ((cfg.runtime.compute_dtype, cfg, model),
                             ("float32", cfg32, model32)):
@@ -1256,10 +1372,11 @@ def phase_pod(card, cfg, params, state, model):
             pod, r = check_pod(name, c, m, streams, route, failures,
                                [record[f"{name}/{s}"] for s in (0, 1)])
             read[f"{name} {route}"] = r
-            if route != "float32":
-                launches = {k: v + r["launches"][k]
-                            for k, v in launches.items()}
-            if fixed and route != "float32":
+            if route == "float32":
+                del pod
+                continue
+            launches = {k: v + r["launches"][k] for k, v in launches.items()}
+            if fixed:
                 rot = np.eye(4, dtype=np.float32)
                 rot[:2, :2] = [[np.cos(0.05), -np.sin(0.05)],
                                [np.sin(0.05), np.cos(0.05)]]
@@ -1270,9 +1387,9 @@ def phase_pod(card, cfg, params, state, model):
                 except ValueError as e:
                     print(f"pod, fixed-frame: a rotated transform raises "
                           f"ValueError: {e}")
-                before = [buffers_of(p) for p in pod.slots]
+                before = [slot_buffers(pod, i) for i in (0, 1)]
                 pod.push_scans([extra[0][0], None], [extra[0][1], None])
-                after = [buffers_of(p) for p in pod.slots]
+                after = [slot_buffers(pod, i) for i in (0, 1)]
                 idle_ok = buffers_equal(before[1], after[1]) and not \
                     buffers_equal(before[0], after[0])
                 read["idle_slot_untouched"] = idle_ok
@@ -1282,14 +1399,31 @@ def phase_pod(card, cfg, params, state, model):
                 if not idle_ok:
                     failures.append("pod: the idle slot's window changed")
             del pod
+            k = read["kernel"][name] = pod_kernel_check(c, m, streams)
+            print(f"pod, {name}, {route}: the batched span kernel on the "
+                  f"{k['convs']} span convs of a full-window pod step of "
+                  f"{k['slots']} slots: one launch over both slots equals one "
+                  f"launch a slot bit for bit {k['equal_single_launches']}; "
+                  f"against the plain version max abs err "
+                  f"{k['max_abs_err']:.3g}, / max(1, |plain|) "
+                  f"{k['max_rel_err']:.3g} (tolerance {TOL})")
+            if k["convs"] != SPAN_CONVS_PER_STEP or k["max_rel_err"] > TOL \
+                    or not k["equal_single_launches"]:
+                failures.append(f"pod {name}: batched span kernel {k}")
     read["launches"] = launches
-    rates = [pod_rate(cfg, model, S, record) for S in POD_SLOTS]
+    rates = [pod_rate(cfg, model, S, record) for S in (0,) + POD_SLOTS]
     read["rates"] = rates
+    single = rates[0]
     print(f"pod aggregate scans/s (first reading, not a benchmark; ref-exact "
           f"stream, bf16, {POD_TIMED} timed steps after {POD_WARM}, host "
-          f"clock, one fence) on {card}: " + ", ".join(
+          f"clock, one fence) on {card}: single-stream pipeline "
+          f"{single['scans_per_s']:.3f} scans/s ({single['step_ms']:.1f} ms a "
+          f"step, peak {single['peak_gib']:.2f} GiB); pod " + ", ".join(
               f"S={r['S']} {r['scans_per_s']:.3f} scans/s ({r['step_ms']:.1f}"
-              f" ms a pod step, peak {r['peak_gib']:.2f} GiB)" for r in rates)
+              f" ms a pod step, peak {r['peak_gib']:.2f} GiB, "
+              f"{r['launches_per_step']:.0f} span-conv launches and "
+              f"{r['nms_copies_per_step']:.0f} NMS host copy a pod step)"
+              for r in rates[1:])
           + "; timed-step span_overflow per plan (step/slot) "
           + json.dumps({r["S"]: r["span_overflow"] for r in rates}))
 
@@ -1466,7 +1600,8 @@ def main() -> int:
          "launches_cli": cli["launches"][key],
          # the training slice: the validation passes of cli/train
          "launches_train": train["launches"][key],
-         # pod inference: 2 slots x 12 steps in each mode, bf16
+         # pod inference: 12 pod steps of 2 slots in each mode, bf16,
+         # one launch a conv for both slots
          "launches_pod": pod["launches"][key]}
         for (name, rep), key in zip(KERNELS, ("main", "slots"))
     ] + probe_entries + micro_entries}

@@ -77,6 +77,14 @@
 // per block and group a chain of key staging, binary search and a gather
 // ring that fills and drains again for the next group, which two blocks on
 // an SM overlap only in part.
+//
+// The slot axis. A multi-stream pod step runs one conv over the S streams
+// (slots) of a card at once, as the JAX package's vmap gives the TPU kernels
+// a slot axis on their grid: blockIdx.z is the slot. Every per-slot operand
+// (keys, feats, the plan, out) is read at its slot's offset (SlotStrides, in
+// elements; 0 for an operand that all slots share), and one weight array
+// serves every slot. A slot's arithmetic is that of a launch with S = 1, so
+// a batched launch equals S single launches bit for bit.
 
 #include <climits>
 #include <cstdint>
@@ -122,6 +130,28 @@ struct PlanPtrs {
   int JS;
   const int* slot_off;
 };
+
+// Per-slot offsets of the operands, in elements (blockIdx.z is the slot).
+struct SlotStrides {
+  long long keys, feats, ocoords, ovalid, sb, emp, dead, gp, gs, slot_off,
+      out;
+};
+
+// The plan inputs of slot z.
+__device__ __forceinline__ PlanPtrs at_slot(const PlanPtrs& p,
+                                            const SlotStrides& st, int z) {
+  PlanPtrs q = p;
+  q.keys += z * st.keys;
+  q.ocoords += z * st.ocoords;
+  q.ovalid += z * st.ovalid;
+  q.sb += z * st.sb;
+  q.emp += z * st.emp;
+  q.dead += z * st.dead;
+  q.gp += z * st.gp;
+  if (q.gs) q.gs += z * st.gs;
+  if (q.slot_off) q.slot_off += z * st.slot_off;
+  return q;
+}
 
 // One group's row table: input row (or -1) per site and tap, and whether a
 // tap matched anywhere in the block.
@@ -290,12 +320,16 @@ __device__ void fold32(Smem32& sm, const float* __restrict__ feats,
   __syncthreads();  // the next group clears the row table
 }
 
-// One thread block per (output block, 64-column tile).
+// One thread block per (output block, 64-column tile, slot).
 __global__ void __launch_bounds__(NT)
-    span_conv_kernel(PlanPtrs p, const float* __restrict__ feats,
+    span_conv_kernel(PlanPtrs p0, const float* __restrict__ feats,
                      const float* __restrict__ wg, float* __restrict__ out,
-                     Geom g) {
+                     Geom g, SlotStrides st) {
   __shared__ Smem32 sm;
+  const int z = blockIdx.z;
+  const PlanPtrs p = at_slot(p0, st, z);
+  feats += z * st.feats;
+  out += z * st.out;
   const int b = blockIdx.x;
   const int to0 = blockIdx.y * TO_TILE;
   float acc[RPT][CPT];
@@ -527,12 +561,12 @@ __device__ __forceinline__ void mma_chunk(const bf16* As, const bf16* Bs,
   }
 }
 
-// One thread block per (output block, column tile of N = 16 * NW8).
+// One thread block per (output block, column tile of N = 16 * NW8, slot).
 template <int NW8>
 __global__ void __launch_bounds__(NT, Tile<NW8>::BLOCKS)
-    span_mma_kernel(PlanPtrs p, const bf16* __restrict__ feats,
+    span_mma_kernel(PlanPtrs p0, const bf16* __restrict__ feats,
                     const bf16* __restrict__ wp, float* __restrict__ out,
-                    Geom g, MmaGeom mg) {
+                    Geom g, MmaGeom mg, SlotStrides st) {
   using T = Tile<NW8>;
   constexpr int N = T::N, STAGES = T::STAGES;
   extern __shared__ __align__(128) unsigned char dyn[];
@@ -540,6 +574,10 @@ __global__ void __launch_bounds__(NT, Tile<NW8>::BLOCKS)
   bf16* Bs = As + STAGES * BS_MAX * LDA;     // [STAGES][MKC][LDB]
   float* res = reinterpret_cast<float*>(Bs + STAGES * MKC * T::LDB);
   __shared__ SmemMma sm;
+  const int z = blockIdx.z;
+  const PlanPtrs p = at_slot(p0, st, z);
+  feats += z * st.feats;
+  out += z * st.out;
   const int b = blockIdx.x, tile = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
@@ -646,7 +684,7 @@ __global__ void __launch_bounds__(NT, Tile<NW8>::BLOCKS)
 template <int NW8>
 int launch_mma(const PlanPtrs& p, const bf16* feats, const bf16* wp,
                float* out, const Geom& g, const MmaGeom& mg, int ntiles,
-               cudaStream_t st) {
+               int S, const SlotStrides& ss, cudaStream_t st) {
   constexpr int smem = Tile<NW8>::SMEM;
   // above 48 KB only after the attribute, set once per device
   static int attr_done[64] = {};
@@ -660,19 +698,30 @@ int launch_mma(const PlanPtrs& p, const bf16* feats, const bf16* wp,
     if (e != cudaSuccess) return (int)e;
     if (dev < 64) attr_done[dev] = 1;
   }
-  const dim3 grid(g.NB, ntiles);
-  span_mma_kernel<NW8><<<grid, NT, smem, st>>>(p, feats, wp, out, g, mg);
+  const dim3 grid(g.NB, ntiles, S);
+  span_mma_kernel<NW8><<<grid, NT, smem, st>>>(p, feats, wp, out, g, mg, ss);
   return (int)cudaGetLastError();
 }
 
-bool geometry_ok(int bs, int kx, int span) {
+bool geometry_ok(int bs, int kx, int span, int S) {
   return bs >= 1 && bs <= BS_MAX && kx >= 1 && kx <= KX_MAX && span >= 1 &&
-         span <= SPAN_MAX;
+         span <= SPAN_MAX && S >= 1 && S <= 65535;
+}
+
+SlotStrides strides_of(const long long* s) {
+  return SlotStrides{s[0], s[1], s[2], s[3], s[4], s[5],
+                     s[6], s[7], s[8], s[9], s[10]};
 }
 
 }  // namespace insmos_span
 
-// float32 operands: feats (Vin, TC), wg (G, kx*TC, TO), out (V, TO) float32.
+// Both entry points take S slots (grid z) and `strides`, a host array of the
+// 11 per-slot offsets of SlotStrides in its order (keys, feats, ocoords,
+// ovalid, sb, emp, dead, gp, gs, slot_off, out), in elements. S = 1 is one
+// stream's conv.
+//
+// float32 operands: feats (Vin, TC), wg (G, kx*TC, TO), out (V, TO) float32
+// per slot.
 extern "C" int span_conv_f32(const void* keys, const void* feats,
                              const void* wg, const void* ocoords,
                              const void* ovalid, const void* sb,
@@ -681,9 +730,10 @@ extern "C" int span_conv_f32(const void* keys, const void* feats,
                              void* out, int V, int Vin, int NB, int bs, int G,
                              int kx, int TC, int TO, int span, int X, int Y,
                              int Z, int sx, int sy, int sz, int px, int py,
-                             int pz, void* stream) {
+                             int pz, int S, const long long* strides,
+                             void* stream) {
   using namespace insmos_span;
-  if (!geometry_ok(bs, kx, span)) return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(bs, kx, span, S)) return (int)cudaErrorInvalidValue;
   if (NB == 0 || TO == 0) return 0;
   const Geom g{V, Vin, NB, bs, G, kx, TC, TO, span,
                X, Y,   Z,  sx, sy, sz, px, py, pz};
@@ -691,16 +741,17 @@ extern "C" int span_conv_f32(const void* keys, const void* feats,
                    (const int*)sb,   (const int*)emp,     (const int*)dead,
                    (const int*)gp,   (const int*)gs,      JS,
                    (const int*)slot_off};
-  const dim3 grid(NB, (TO + TO_TILE - 1) / TO_TILE);
+  const dim3 grid(NB, (TO + TO_TILE - 1) / TO_TILE, S);
   span_conv_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      p, (const float*)feats, (const float*)wg, (float*)out, g);
+      p, (const float*)feats, (const float*)wg, (float*)out, g,
+      strides_of(strides));
   return (int)cudaGetLastError();
 }
 
-// bf16 operands: feats (Vin, TC); wp (G, Kp, TOP) the folded weight padded
-// with zeros to Kp = a multiple of 32 rows and TOP = ntiles * 16 * nw8
-// columns; out (V, TO) float32. vec: 8 (TC % 8 == 0, feats 16-byte
-// aligned), 2 (TC even, 4-byte aligned) or 1.
+// bf16 operands: feats (Vin, TC) per slot; wp (G, Kp, TOP) the folded
+// weight padded with zeros to Kp = a multiple of 32 rows and TOP = ntiles *
+// 16 * nw8 columns; out (V, TO) float32 per slot. vec: 8 (TC % 8 == 0,
+// every slot's feats 16-byte aligned), 2 (TC even, 4-byte aligned) or 1.
 extern "C" int span_conv_mma(const void* keys, const void* feats,
                              const void* wp, const void* ocoords,
                              const void* ovalid,
@@ -710,9 +761,10 @@ extern "C" int span_conv_mma(const void* keys, const void* feats,
                              int NB, int bs, int G, int kx, int TC, int TO,
                              int span, int X, int Y, int Z, int sx, int sy,
                              int sz, int px, int py, int pz, int Kp, int TOP,
-                             int nw8, int ntiles, int vec, void* stream) {
+                             int nw8, int ntiles, int vec, int S,
+                             const long long* strides, void* stream) {
   using namespace insmos_span;
-  if (!geometry_ok(bs, kx, span) || Kp <= 0 || Kp % MKC || Kp > KP_MAX ||
+  if (!geometry_ok(bs, kx, span, S) || Kp <= 0 || Kp % MKC || Kp > KP_MAX ||
       Kp < kx * TC || ntiles < 1 || TOP != ntiles * 16 * nw8 || TOP < TO ||
       (vec != 8 && vec != 2 && vec != 1) || (vec == 8 && TC % 8) ||
       (vec == 2 && TC % 2))
@@ -729,15 +781,16 @@ extern "C" int span_conv_mma(const void* keys, const void* feats,
   const bf16* w = (const bf16*)wp;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
+  const SlotStrides ss = strides_of(strides);
   switch (nw8) {
-    case 1: return launch_mma<1>(p, f, w, o, g, mg, ntiles, st);
-    case 2: return launch_mma<2>(p, f, w, o, g, mg, ntiles, st);
-    case 3: return launch_mma<3>(p, f, w, o, g, mg, ntiles, st);
-    case 4: return launch_mma<4>(p, f, w, o, g, mg, ntiles, st);
-    case 5: return launch_mma<5>(p, f, w, o, g, mg, ntiles, st);
-    case 6: return launch_mma<6>(p, f, w, o, g, mg, ntiles, st);
-    case 8: return launch_mma<8>(p, f, w, o, g, mg, ntiles, st);
-    case 10: return launch_mma<10>(p, f, w, o, g, mg, ntiles, st);
+    case 1: return launch_mma<1>(p, f, w, o, g, mg, ntiles, S, ss, st);
+    case 2: return launch_mma<2>(p, f, w, o, g, mg, ntiles, S, ss, st);
+    case 3: return launch_mma<3>(p, f, w, o, g, mg, ntiles, S, ss, st);
+    case 4: return launch_mma<4>(p, f, w, o, g, mg, ntiles, S, ss, st);
+    case 5: return launch_mma<5>(p, f, w, o, g, mg, ntiles, S, ss, st);
+    case 6: return launch_mma<6>(p, f, w, o, g, mg, ntiles, S, ss, st);
+    case 8: return launch_mma<8>(p, f, w, o, g, mg, ntiles, S, ss, st);
+    case 10: return launch_mma<10>(p, f, w, o, g, mg, ntiles, S, ss, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -17,6 +17,8 @@ statistics and their updates are averaged, as the reference's vmap does.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -162,7 +164,8 @@ def collect_bn_state(model: nn.Module) -> dict:
 
 
 def conv2d(x, w, stride: int = 1):
-    """NCHW conv with TF-style SAME padding; float32 accumulation."""
+    """NCHW conv with TF-style SAME padding; float32 accumulation, on
+    PyTorch's own convolution (see :func:`_per_sample_conv`)."""
     kh, kw = w.shape[2], w.shape[3]
     pads = []
     for size, k in ((x.shape[3], kw), (x.shape[2], kh)):
@@ -170,9 +173,27 @@ def conv2d(x, w, stride: int = 1):
         total = max((out - 1) * stride + k - size, 0)
         pads += [total // 2, total - total // 2]
     x = F.pad(x.to(w.dtype).float(), pads)
-    return F.conv2d(x, w.float(), stride=stride)
+    with _per_sample_conv():
+        return F.conv2d(x, w.float(), stride=stride)
 
 
 def conv2d_transpose(x, w, stride: int = 2):
     """NCHW transposed conv, kernel == stride (exact upsample)."""
-    return F.conv_transpose2d(x.to(w.dtype).float(), w.float(), stride=stride)
+    with _per_sample_conv():
+        return F.conv_transpose2d(x.to(w.dtype).float(), w.float(),
+                                  stride=stride)
+
+
+def _per_sample_conv():
+    """cuDNN off for the BEV convolutions at inference (no autograd).
+    cuDNN picks its algorithm (and its workspace) by the batch size:
+    vmapped over a pod's slots the convs ran another algorithm than one
+    stream's, with other float32 sums and a 16 GiB workspace at the full
+    Config on an H100. PyTorch's own convolution computes each sample alone
+    (im2col and one GEMM), so a slot's output does not depend on the slots
+    beside it. The train step, never vmapped, keeps cuDNN: its float32
+    gradients, which the train-mode BEV BatchNorm amplifies, are held to
+    the committed train record's cuDNN readings."""
+    if torch.is_grad_enabled():
+        return contextlib.nullcontext()
+    return torch.backends.cudnn.flags(enabled=False)

@@ -184,11 +184,11 @@ def _incremental_stem(p: MotionNet, cfg, x: Slab, coords3, point_valid,
     rows = stem_cache["feats"][pos]
     rows = torch.where(hit[:, None], rows, torch.zeros((), dtype=rows.dtype,
                                                        device=rows.device))
-    merged = torch.cat([rows[:, C:], rows.new_zeros((cap0, C))], dim=1)
     fpos = _bisect(nslab.keys, x.keys).clamp(0, scan_cap - 1).long()
     fhit = (nslab.keys[fpos] == x.keys) & x.valid
-    fr = fresh.feats[fpos].to(merged.dtype)
-    merged[:, (W - 1) * C:] = torch.where(fhit[:, None], fr, 0.0)
+    fr = fresh.feats[fpos].to(rows.dtype)
+    merged = torch.cat([rows[:, C:], torch.where(fhit[:, None], fr, 0.0)],
+                       dim=1)
     out = x.replace_feats(merged)
     return out.replace_feats(out.mask_feats())
 
@@ -420,10 +420,11 @@ def motionnet_forward(p: MotionNet, cfg, points, point_valid, *,
         # cache keeps its own dtype (float32: the stem's BN output).
         safe_new = torch.where(nslab.valid & (new_pos >= 0), new_pos,
                                caps[0]).long()
-        col = stem_shifted.new_zeros((caps[0] + 1, C0))
-        col[safe_new] = fresh_stem.feats.to(col.dtype)
-        merged = stem_shifted.clone()
-        merged[:, (W - 1) * C0:] = col[:caps[0]]
+        col = torch.zeros((caps[0] + 1, C0), dtype=stem_shifted.dtype,
+                          device=dev).index_put(
+            (safe_new,), fresh_stem.feats.to(stem_shifted.dtype))
+        merged = torch.cat([stem_shifted[:, :(W - 1) * C0], col[:caps[0]]],
+                           dim=1)
         out_stem = x.replace_feats(merged)
         out_stem = out_stem.replace_feats(out_stem.mask_feats())
     elif stem_cache is not None:

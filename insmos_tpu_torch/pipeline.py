@@ -20,18 +20,21 @@ scans and runs the model. Two modes, as in the reference:
 
 The pipeline runs on the card unless ``device`` names the CPU.
 
-:class:`PodInferencePipeline` streams S sequences in lockstep, one
-single-stream pipeline a slot, the slots spread over the devices given
-(every visible card by default).
+:class:`PodInferencePipeline` streams S sequences in lockstep, the slots
+spread over the devices given (every visible card by default): on each
+device one step, ``torch.func.vmap``ped over that device's slots, as the
+JAX package's pod does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Iterator
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 from . import setup_device
 from .nn.model import InsMOSModel
@@ -96,6 +99,39 @@ def voxel_translation(tf: np.ndarray, voxel: float):
     return tf_snap, (-k).astype(np.int32)
 
 
+def window_buffers(cfg, device, lead: tuple = ()) -> dict:
+    """A fresh device window (points, counts, mask) and, in the incremental
+    mode, the empty stem cache and window site set, each with the leading
+    axes ``lead`` (the pod's slot axis)."""
+    W = cfg.model.n_past_steps
+    P = cfg.runtime.max_points_per_scan
+    buf = {
+        "points": torch.zeros(lead + (W, P, 4), dtype=torch.float32,
+                              device=device),
+        "num_points": torch.zeros(lead + (W,), dtype=torch.int32,
+                                  device=device),
+        "scan_mask": torch.zeros(lead + (W,), dtype=torch.bool, device=device),
+    }
+    if cfg.runtime.incremental_stem:
+        # an all-sentinel cache is exact for an empty window: every query
+        # misses, which is zero history
+        cap = cfg.model.motionnet.site_capacities[0]
+        C = cfg.model.motionnet.init_dim  # the stem's output channels
+        buf["stem_cache"] = {
+            "keys": torch.full(lead + (cap,), KEY_SENTINEL, dtype=torch.int32,
+                               device=device),
+            "feats": torch.zeros(lead + (cap, W * C), dtype=torch.float32,
+                                 device=device),
+        }
+        buf["win"] = {
+            "keys": torch.full(lead + (cap,), KEY_SENTINEL, dtype=torch.int32,
+                               device=device),
+            "occ": torch.zeros(lead + (cap, W), dtype=torch.bool,
+                               device=device),
+        }
+    return buf
+
+
 class InferencePipeline:
     def __init__(self, cfg, model: InsMOSModel, device="cuda"):
         self.cfg = cfg
@@ -106,32 +142,7 @@ class InferencePipeline:
 
     # ------------------------------------------------------------- state
     def reset(self):
-        cfg = self.cfg
-        W = cfg.model.n_past_steps
-        P = cfg.runtime.max_points_per_scan
-        dev = self.device
-        buf = {
-            "points": torch.zeros((W, P, 4), dtype=torch.float32, device=dev),
-            "num_points": torch.zeros((W,), dtype=torch.int32, device=dev),
-            "scan_mask": torch.zeros((W,), dtype=torch.bool, device=dev),
-        }
-        if cfg.runtime.incremental_stem:
-            # an all-sentinel cache is exact for an empty window: every
-            # query misses, which is zero history
-            cap = cfg.model.motionnet.site_capacities[0]
-            C = cfg.model.motionnet.init_dim  # the stem's output channels
-            sent = torch.full((cap,), KEY_SENTINEL, dtype=torch.int32,
-                              device=dev)
-            buf["stem_cache"] = {
-                "keys": sent,
-                "feats": torch.zeros((cap, W * C), dtype=torch.float32,
-                                     device=dev),
-            }
-            buf["win"] = {
-                "keys": sent.clone(),
-                "occ": torch.zeros((cap, W), dtype=torch.bool, device=dev),
-            }
-        self._buf = buf
+        self._buf = window_buffers(self.cfg, self.device)
 
     def _pad(self, scan: np.ndarray):
         """The scan in a zero-padded (capacity, 4) buffer, and its count."""
@@ -144,7 +155,8 @@ class InferencePipeline:
         return padded, n_raw
 
     # -------------------------------------------------------------- step
-    def _roll_window(self, buf, new_scan, n_new, tf):
+    @staticmethod
+    def _roll_window(buf, new_scan, n_new, tf):
         """Roll the window, re-express it in the new frame, insert the new
         scan. Returns (pts, num, mask)."""
         W = buf["points"].shape[0]
@@ -253,6 +265,19 @@ OUT_KEYS = ("point_logits", "boxes", "scores", "labels", "box_mask",
             "overflow")
 
 
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """vmap's per-slot fallback off: an op with no batching rule raises
+    instead of running slot by slot. Restored on exit."""
+    functorch = torch._C._functorch
+    prev = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        functorch._set_vmap_fallback_enabled(prev)
+
+
 class PodInferencePipeline:
     """Streaming multi-sequence inference (the port of the JAX package's
     ``PodInferencePipeline``): S sequence streams advance in lockstep, one
@@ -260,16 +285,23 @@ class PodInferencePipeline:
 
     ``n_slots = len(devices) * slots_per_device``; slot i lives on device
     ``i // slots_per_device``. Each device holds one model replica (the
-    first is ``model`` itself, the others deep copies), so on one card all
-    slots share the one model. ``devices`` defaults to every visible CUDA
-    device; the CPU runs only when the caller names it. Each slot is a
-    single-stream :class:`InferencePipeline` with its own ring window and,
-    in the incremental mode, its own stem cache and window site set.
+    first is ``model`` itself, the others deep copies) and one stacked
+    window of its slots, ``(S_d, W, P, 4)`` and so on, with the incremental
+    mode's stem cache and window site set. ``devices`` defaults to every
+    visible CUDA device; the CPU runs only when the caller names it.
 
-    A step runs each active slot's single-stream step, one slot after
-    another; the JAX package vmaps one step over the slot axis instead,
-    which gives the same outputs. In the incremental mode every active
-    slot's transform must be an integer-voxel translation (scans framed by
+    A step is, on each device, the single-stream step ``torch.func.vmap``ped
+    over the device's slots, as two passes (motion, then tail), exactly as
+    the JAX package vmaps its step: each glue op, each span-plan pass, the
+    NMS and each span-conv kernel launch serve every slot of the device at
+    once (the span conv's and the NMS's batching rules, span_conv.py and
+    ops/nms.py). vmap's per-slot fallback is off during the step, so an op
+    without a batching rule raises instead of looping over slots. Idle slots
+    step on an empty scan with their window kept (``torch.where(active,
+    new, old)``); their outputs are zeros. Devices step one after another.
+
+    In the incremental mode every active slot's transform must be an
+    integer-voxel translation (scans framed by
     :func:`fixed_frame_transform`): the pod has no per-slot full-stem
     recovery step, so any other transform raises ``ValueError`` before any
     slot steps."""
@@ -283,18 +315,52 @@ class PodInferencePipeline:
                                    "(devices=['cpu']) to run there")
         self.cfg = cfg
         self.slots_per_device = int(slots_per_device)
-        replicas = [model if j == 0 else copy.deepcopy(model)
-                    for j in range(len(devices))]
-        self.slots = [
-            InferencePipeline(cfg, replicas[i // self.slots_per_device],
-                              devices[i // self.slots_per_device])
-            for i in range(len(devices) * self.slots_per_device)]
-        self.n_slots = len(self.slots)
-        self.device = self.slots[0].device
+        self.devices = [setup_device(d) for d in devices]
+        self.models = [(model if j == 0 else copy.deepcopy(model)).to(d).eval()
+                       for j, d in enumerate(self.devices)]
+        self.n_slots = len(self.devices) * self.slots_per_device
+        self.device = self.devices[0]
+        self._buf = None  # one stacked window per device
 
     def reset(self):
-        for slot in self.slots:
-            slot.reset()
+        self._buf = [window_buffers(self.cfg, d, (self.slots_per_device,))
+                     for d in self.devices]
+
+    def _device_step(self, j, padded, ns, tfs, shifts, active) -> dict:
+        """Device j's vmapped step over its slots (host arrays, one row a
+        slot). Returns its outputs (S_d, ...), zeros on idle slots."""
+        dev, model = self.devices[j], self.models[j]
+        incremental = self.cfg.runtime.incremental_stem
+
+        def motion(buf, scan, n, tf, shift, act):
+            pts, num, mask = InferencePipeline._roll_window(buf, scan, n, tf)
+            kw = dict(stem_cache=buf["stem_cache"], win_cache=buf["win"],
+                      cache_shift=shift) if incremental else {}
+            inter = model.forward_motion(
+                {"points": pts, "num_points": num, "scan_mask": mask}, **kw)
+            new = {"points": pts, "num_points": num, "scan_mask": mask}
+            if incremental:
+                new["stem_cache"] = inter.pop("stem_cache")
+                new["win"] = inter.pop("win")
+            # an idle slot keeps its window and caches untouched
+            new = _pytree.tree_map(lambda a, b: torch.where(act, a, b), new,
+                                   buf)
+            return new, inter
+
+        def tail(inter):
+            out = model.forward_tail(inter)
+            return {k: out[k] for k in OUT_KEYS}
+
+        args = [torch.from_numpy(a).to(dev, non_blocking=True)
+                for a in (padded, ns, tfs, shifts, active)]
+        with no_vmap_fallback():
+            self._buf[j], inter = torch.func.vmap(motion)(self._buf[j], *args)
+            out = torch.func.vmap(tail)(inter)
+        act = args[-1]
+        return _pytree.tree_map(
+            lambda x: torch.where(act.reshape((-1,) + (1,) * (x.dim() - 1)),
+                                  x, torch.zeros((), dtype=x.dtype,
+                                                 device=dev)), out)
 
     @torch.inference_mode()
     def push_scans(self, scans, tfs=None) -> dict:
@@ -302,52 +368,47 @@ class PodInferencePipeline:
         step transforms or None (identity). Returns the step's outputs
         batched (S, ...) on the first device, with the single-stream keys
         (``overflow`` a dict of (S, ...) counters); trim one slot's with
-        :meth:`fetch`. An idle slot does not step: its window is left
-        untouched and its rows are zeros with ``box_mask`` all False, which
-        no caller reads."""
+        :meth:`fetch`. An idle slot's window is left untouched and its rows
+        are zeros with ``box_mask`` all False, which no caller reads."""
         if len(scans) != self.n_slots:
             raise ValueError(f"{len(scans)} scans for {self.n_slots} slots")
+        if all(scan is None for scan in scans):
+            raise ValueError("every slot is idle")
+        S = self.n_slots
+        cap = self.cfg.runtime.max_points_per_scan
         vox = self.cfg.data.voxel_size[0]
-        steps = {}
+        padded = np.zeros((S, cap, 4), np.float32)
+        ns = np.zeros((S,), np.int32)
+        active = np.zeros((S,), bool)
+        tfa = np.tile(np.eye(4, dtype=np.float32), (S, 1, 1))
+        shifts = np.zeros((S, 3), np.int32)
         for i, scan in enumerate(scans):
             if scan is None:
                 continue
-            tf = (np.eye(4, dtype=np.float32)
-                  if tfs is None or tfs[i] is None
-                  else np.asarray(tfs[i], np.float32))
-            shift = None
+            if len(scan) > cap:
+                raise ValueError(f"slot {i}: scan has {len(scan)} points > "
+                                 f"capacity {cap}")
+            padded[i, :len(scan)] = scan[:, :4]
+            ns[i] = len(scan)
+            active[i] = True
+            if tfs is not None and tfs[i] is not None:
+                tfa[i] = np.asarray(tfs[i], np.float32)
             if self.cfg.runtime.incremental_stem:
-                snapped = voxel_translation(tf, vox)
+                snapped = voxel_translation(tfa[i], vox)
                 if snapped is None:
                     raise ValueError(
                         f"slot {i}: tf is not an integer-voxel translation; "
                         "feed fixed_frame_transform'd scans in the "
                         "incremental pod mode")
-                tf, shift = snapped
-            steps[i] = (*self.slots[i]._pad(scan), tf, shift)
-        if not steps:
-            raise ValueError("every slot is idle")
-        outs = {}
-        for i, args in steps.items():
-            slot = self.slots[i]
-            if slot._buf is None:
-                slot.reset()
-            outs[i] = slot._step(*args)
-        like = next(iter(outs.values()))
-        dev = self.device
-
-        def stack(get):
-            ref = get(like)
-            return torch.stack([
-                get(outs[i]).to(dev) if i in outs else
-                torch.zeros_like(ref, device=dev)
-                for i in range(self.n_slots)])
-
-        out = {k: stack(lambda o, k=k: o[k]) for k in OUT_KEYS
-               if k != "overflow"}
-        out["overflow"] = {k: stack(lambda o, k=k: o["overflow"][k])
-                           for k in like["overflow"]}
-        return out
+                tfa[i], shifts[i] = snapped
+        if self._buf is None:
+            self.reset()
+        D = self.slots_per_device
+        outs = [self._device_step(j, *(a[j * D:(j + 1) * D] for a in (
+            padded, ns, tfa, shifts, active)))
+            for j in range(len(self.devices))]
+        return _pytree.tree_map(
+            lambda *xs: torch.cat([x.to(self.device) for x in xs]), *outs)
 
     @staticmethod
     def fetch(out: dict, i: int, n_raw: int) -> dict[str, np.ndarray]:

@@ -15,7 +15,7 @@ def to_dense_bev(x: SparseTensor) -> torch.Tensor:
     feats = torch.where(x.valid[:, None], x.feats, 0.0)
     cx, cy, cz = (x.coords[:, i].to(torch.int64) for i in range(3))
     flat = torch.where(x.valid, cy * (X * Z) + cx * Z + cz, Y * X * Z)
-    dense = feats.new_zeros((Y * X * Z + 1, C))
-    dense[flat] = feats
+    dense = torch.zeros((Y * X * Z + 1, C), dtype=feats.dtype,
+                        device=feats.device).index_put((flat,), feats)
     dense = dense[:-1].reshape(Y, X, Z, C)
     return dense.permute(0, 1, 3, 2).reshape(Y, X, C * Z)

@@ -26,10 +26,10 @@ def linearize_coords(coords, dims: Sequence[int], valid=None):
     in_grid = torch.ones(coords.shape[:-1], dtype=torch.bool, device=coords.device)
     for d in reversed(range(len(dims))):
         c = coords[..., d]
-        in_grid &= (c >= 0) & (c < dims[d])
+        in_grid = in_grid & (c >= 0) & (c < dims[d])
         key = key * dims[d] + c.clamp(0, dims[d] - 1)
     if valid is not None:
-        in_grid &= valid
+        in_grid = in_grid & valid
     return torch.where(in_grid, key, KEY_SENTINEL).to(torch.int32)
 
 

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import torch
+from torch.utils import _pytree
 
 from .tensor import KEY_SENTINEL
 
@@ -61,6 +62,14 @@ class Slab:
         return torch.where(m, f, torch.zeros((), dtype=f.dtype, device=f.device))
 
 
+# a pytree (``dims`` and ``T`` static), so a vmapped function can return one
+_pytree.register_pytree_node(
+    Slab,
+    lambda x: ((x.keys, x.coords, x.occ, x.feats, x.valid), (x.dims, x.T)),
+    lambda leaves, ctx: Slab(*leaves, *ctx),
+)
+
+
 def linearize3(coords, dims):
     """(..., 3) int coords -> (...,) int32 key, x fastest; OOB -> sentinel."""
     c = coords.to(torch.int64)
@@ -85,9 +94,8 @@ def _iota(n, device):
 
 def _first_of_run(sorted_vals):
     """(N,) bool: row starts a run of equal values."""
-    f = torch.ones_like(sorted_vals, dtype=torch.bool)
-    f[1:] = sorted_vals[1:] != sorted_vals[:-1]
-    return f
+    return torch.cat([torch.ones_like(sorted_vals[:1], dtype=torch.bool),
+                      sorted_vals[1:] != sorted_vals[:-1]])
 
 
 def _compact_by_sort(order_key, payload, capacity: int, fill):
@@ -146,14 +154,15 @@ def build_slab(coords3, tcol, point_valid, dims: Sequence[int], T: int,
     first4 = _first_of_run(sk) | torch.cat(
         [torch.ones(1, dtype=torch.bool, device=dev), st[1:] != st[:-1]]
     )
-    first4 &= in_cap
+    first4 = first4 & in_cap
     flat4 = torch.where(first4, rank3 * T + st, capacity * T).to(torch.int64)
-    occ = torch.zeros(capacity * T + 1, dtype=torch.bool, device=dev)
-    occ[flat4] = True
+    occ = torch.zeros(capacity * T + 1, dtype=torch.bool, device=dev
+                      ).index_put((flat4,), torch.ones((), dtype=torch.bool,
+                                                      device=dev))
     occ = occ[:-1].reshape(capacity, T)
 
-    p2slot = torch.empty(n, dtype=torch.int32, device=dev)
-    p2slot[sperm] = torch.where(in_cap, rank3 * T + st, -1)
+    p2slot = torch.empty(n, dtype=torch.int32, device=dev).index_put(
+        (sperm,), torch.where(in_cap, rank3 * T + st, -1))
 
     slab = Slab(
         keys=site_keys, coords=coords, occ=occ,
@@ -199,24 +208,27 @@ def maintain_window_slab(prev_keys, prev_occ, prev_stem, nslab_keys,
 
     # per-source destination rows: the sort's inverse permutation, by a
     # scatter (spl is a permutation, so every row is written once)
-    dest = torch.empty_like(sv)
-    dest[spl] = torch.where(in_cap, rank, -1)
+    dest = torch.empty_like(sv).index_put((spl,),
+                                          torch.where(in_cap, rank, -1))
     old_pos, new_pos = dest[:cap0], dest[cap0:]
 
     # occupancy and the rolled stem cache, re-rowed by scatter onto unique
     # rows; everything dropped lands on the extra row ``capacity``
     safe_old = torch.where(keep_old & (old_pos >= 0), old_pos,
                            capacity).to(torch.int64)
-    occ = torch.zeros((capacity + 1, W), dtype=torch.bool, device=dev)
-    occ[safe_old] = occ_roll
-    occ[:, W - 1] = False
+    occ_old = torch.zeros((capacity + 1, W - 1), dtype=torch.bool,
+                          device=dev).index_put((safe_old,),
+                                                occ_roll[:, :W - 1])
     new_rows = torch.where(nslab_valid & (new_pos >= 0), new_pos,
                            capacity).to(torch.int64)
-    occ[new_rows, W - 1] = True
+    occ_new = torch.zeros(capacity + 1, dtype=torch.bool, device=dev
+                          ).index_put((new_rows,), torch.ones(
+                              (), dtype=torch.bool, device=dev))
+    occ = torch.cat([occ_old, occ_new[:, None]], dim=1)
     stem_rolled = torch.cat([prev_stem[:, C:], prev_stem.new_zeros((cap0, C))],
                             dim=1)
-    stem_shifted = prev_stem.new_zeros((capacity + 1, W * C))
-    stem_shifted[safe_old] = stem_rolled
+    stem_shifted = torch.zeros((capacity + 1, W * C), dtype=prev_stem.dtype,
+                               device=dev).index_put((safe_old,), stem_rolled)
     return (site_keys, coords, occ[:capacity], stem_shifted[:capacity],
             new_pos, n_sites, n_dropped)
 
@@ -285,8 +297,9 @@ def dilate_mask(src_keys, src_sel, dims, reach: int, q_keys, q_valid):
     X, Y, Z = dims
     n = X * Y * Z
     sk = torch.where(src_sel, src_keys, n).to(torch.int64)
-    grid = torch.zeros(n + 1, dtype=torch.bool, device=src_keys.device)
-    grid[sk.clamp(max=n)] = True
+    grid = torch.zeros(n + 1, dtype=torch.bool, device=src_keys.device
+                       ).index_put((sk.clamp(max=n),), torch.ones(
+                           (), dtype=torch.bool, device=src_keys.device))
     g = grid[:n].reshape(Z, Y, X)
     for ax in (2, 1, 0):
         out = g.clone()
@@ -307,9 +320,10 @@ def compact_rows(sel, capacity: int):
     pos = torch.cumsum(sel.to(torch.int32), 0, dtype=torch.int32) - 1
     keep = sel & (pos < capacity)
     tgt = torch.where(keep, pos, capacity).to(torch.int64)
-    idx = torch.full((capacity + 1,), -1, dtype=torch.int32, device=sel.device)
     # kept rows land on unique slots; the rest all write -1 to the dump slot
-    idx[tgt] = torch.where(keep, _iota(sel.shape[0], sel.device), -1)
+    idx = torch.full((capacity + 1,), -1, dtype=torch.int32, device=sel.device
+                     ).index_put((tgt,), torch.where(
+                         keep, _iota(sel.shape[0], sel.device), -1))
     n = sel.sum()
     return idx[:capacity], torch.clamp(n - capacity, min=0)
 
@@ -325,10 +339,10 @@ def take_rows(a, idx, fill=0):
 def site_grid(x: Slab) -> torch.Tensor:
     """Dense (X*Y*Z + 2,) int32 map: key -> site index or -1."""
     n_cells = math.prod(x.dims)
-    grid = torch.full((n_cells + 3,), -1, dtype=torch.int32,
-                      device=x.keys.device)
     safe = torch.where(x.valid, x.keys, n_cells + 2).to(torch.int64)
-    grid[safe] = _iota(x.capacity, x.keys.device)
+    grid = torch.full((n_cells + 3,), -1, dtype=torch.int32,
+                      device=x.keys.device).index_put(
+                          (safe,), _iota(x.capacity, x.keys.device))
     return grid[: n_cells + 2]
 
 

@@ -15,9 +15,13 @@ contributes only if its input key lies in the block's main window
 ``>= excl`` -- the span-restricted semantics of the TPU kernels, which the
 port keeps so that plans with ``n_overflow > 0`` agree too.
 
-The op runs the hand-written CUDA kernel of ``csrc/span_conv.cu`` for
-CUDA tensors and its plain PyTorch version (``span_conv_core_plain``) for
-CPU tensors. There is no fallback between the two.
+The op (``insmos::span_conv``, a ``torch.library`` custom op) runs the
+hand-written CUDA kernel of ``csrc/span_conv.cu`` for CUDA tensors and its
+plain PyTorch version (``span_conv_core_plain``) for CPU tensors. There is
+no fallback between the two. Its batching rule serves the multi-stream
+pod's step, which ``torch.func.vmap`` runs over the slots of a card: one
+kernel launch covers every slot, as the JAX package's vmap gives the TPU
+kernels a slot axis on their grid.
 """
 
 from __future__ import annotations
@@ -450,16 +454,13 @@ def span_conv_apply(x_keys, x_feats, out_coords, out_valid, weight,
 def span_conv_parts(x_keys, feats_cat, weights, parts, out_coords, out_valid,
                     plan: SpanPlan, T_out: int):
     """Multi-part span conv with a precomputed plan. Returns (V, TO_tot)
-    float32. CUDA tensors run the CUDA kernel, CPU tensors the plain
-    version; anything else raises."""
+    float32 through the op ``insmos::span_conv``: CUDA tensors run the CUDA
+    kernel, CPU tensors the plain version; anything else raises. Under
+    ``torch.func.vmap`` over slots the op's batching rule runs all slots in
+    one kernel launch (see ``_span_conv_vmap``)."""
     feats, wg = _prepare(feats_cat, weights, parts, plan, T_out)
-    if feats.is_cuda:
-        return span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
-                                   plan)
-    if feats.device.type != "cpu":
-        raise ValueError(f"span_conv_parts: unsupported device {feats.device}")
-    return span_conv_core_plain(x_keys, feats, wg, out_coords, out_valid,
-                                plan)
+    return span_conv_op(x_keys, feats, wg, out_coords, out_valid, plan.sb,
+                        plan.emp, plan.gp, plan.gs, _plan_geom(plan))
 
 
 def span_conv_parts_plain(x_keys, feats_cat, weights, parts, out_coords,
@@ -602,10 +603,11 @@ def span_conv_work(x_keys, feats, wg, out_coords, out_valid,
 class SpanConvKernels:
     """ctypes binding of csrc/span_conv.cu with its launch counters.
 
-    One launch replaces both TPU kernels: ``main_launches`` counts the
-    launches (each runs the main windows, span_conv.py::_kernel) and
-    ``slot_launches`` those that also ran coverage slots (the plan has
-    slots: span_conv.py::_gw_kernel). Both move only where a kernel is
+    One launch replaces both TPU kernels, for one stream or for all the
+    slots of a pod step: ``main_launches`` counts the launches (each runs
+    the main windows, span_conv.py::_kernel) and ``slot_launches`` those
+    that also ran coverage slots (the plan has slots:
+    span_conv.py::_gw_kernel). Both move only where a kernel is
     launched, whichever of the two (bf16 on the tensor cores, float32 on
     the CUDA cores) the operands' type selects."""
 
@@ -624,14 +626,15 @@ class SpanConvKernels:
 
             lib = load_library()
             ptr, i = ctypes.c_void_p, ctypes.c_int
-            # 10 inputs, JS, slot_off, out, 18 geometry ints, stream
+            # 10 inputs, JS, slot_off, out, 18 geometry ints, S, the slot
+            # strides, stream
             lib.span_conv_f32.argtypes = ([ptr] * 10 + [i, ptr, ptr]
-                                          + [i] * 18 + [ptr])
+                                          + [i] * 18 + [i, ptr, ptr])
             lib.span_conv_f32.restype = i
             # 10 inputs, JS, slot_off, out, 18 geometry ints, Kp, TOP,
-            # nw8, ntiles, vec, stream
+            # nw8, ntiles, vec, S, the slot strides, stream
             lib.span_conv_mma.argtypes = ([ptr] * 10 + [i, ptr, ptr]
-                                          + [i] * 23 + [ptr])
+                                          + [i] * 24 + [ptr, ptr])
             lib.span_conv_mma.restype = i
             self._lib = lib
         return self._lib
@@ -681,14 +684,26 @@ def span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
     """The CUDA kernel on folded weights (same contract as
     span_conv_core_plain), launched once on the current stream: bf16
     operands run the tensor-core kernel, float32 operands the CUDA-core
-    kernel."""
+    kernel.
+
+    With a leading slot axis of S on every per-slot operand (x_keys (S, Vin),
+    feats (S, Vin, TC), out_coords (S, V, 3), out_valid (S, V), and the
+    plan's sb, emp (S, G, NB) and gs (S, 4, JS)) one launch runs all S slots
+    (grid z) with the one weight ``wg`` and the plan's shared ``gp``, and
+    returns (S, V, TO): slot s equals the launch on slot s alone."""
     dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"span_conv_core_cuda needs CUDA tensors, got {dev}")
+    batched = x_keys.dim() == 2
+    sb, emp, gs = plan.sb, plan.emp, plan.gs
+    if not batched:
+        x_keys, feats, out_coords, out_valid, sb, emp, gs = (
+            t.unsqueeze(0) for t in (x_keys, feats, out_coords, out_valid,
+                                     sb, emp, gs))
     kx = int(plan.kernel3[0])
     G, K, TO = wg.shape
-    Vin, TC = feats.shape
-    V = out_coords.shape[0]
+    S, Vin, TC = feats.shape
+    V = out_coords.shape[1]
     bs, span = plan.bs, plan.span
     NB = -(-V // bs)
     if not (1 <= kx <= KX_MAX and 1 <= bs <= BS_MAX and 16 <= span <= SPAN_MAX):
@@ -699,34 +714,39 @@ def span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
         raise TypeError(f"feats dtype {feats.dtype}")
     ocoords = out_coords.to(torch.int32).contiguous()
     ovalid = out_valid.to(torch.int32).contiguous()
-    dead = (_pad_rows(ovalid, NB * bs, 0).reshape(NB, bs).sum(dim=1) == 0).to(
-        torch.int32)
-    _check(x_keys, "x_keys", torch.int32, (Vin,), dev)
-    _check(feats, "feats", feats.dtype, (Vin, TC), dev)
+    dead = (torch.nn.functional.pad(ovalid, (0, NB * bs - V)).reshape(
+        S, NB, bs).sum(dim=2) == 0).to(torch.int32)
+    x_keys, feats, sb, emp = (t.contiguous() for t in (x_keys, feats, sb, emp))
+    _check(x_keys, "x_keys", torch.int32, (S, Vin), dev)
+    _check(feats, "feats", feats.dtype, (S, Vin, TC), dev)
     _check(wg, "wg", feats.dtype, (G, kx * TC, TO), dev)
-    _check(ocoords, "out_coords", torch.int32, (V, 3), dev)
-    _check(plan.sb, "sb", torch.int32, (G, NB), dev)
-    _check(plan.emp, "emp", torch.int32, (G, NB), dev)
+    _check(ocoords, "out_coords", torch.int32, (S, V, 3), dev)
+    _check(sb, "sb", torch.int32, (S, G, NB), dev)
+    _check(emp, "emp", torch.int32, (S, G, NB), dev)
     _check(plan.gp, "gp", torch.int32, (G, 2), dev)
-    JS = plan.gs.shape[1]
+    JS = gs.shape[2]
     gs_ptr = off_ptr = None
     if JS:
-        gs = plan.gs.contiguous()
-        _check(gs, "gs", torch.int32, (4, JS), dev)
+        gs = gs.contiguous()
+        _check(gs, "gs", torch.int32, (S, 4, JS), dev)
         # CSR over the block-sorted slots: block b owns [off[b], off[b+1])
-        blocks = torch.where(gs[1] >= 0, gs[1], NB).contiguous()
+        blocks = torch.where(gs[:, 1] >= 0, gs[:, 1], NB).contiguous()
         slot_off = torch.searchsorted(
-            blocks, torch.arange(NB + 1, dtype=torch.int32, device=dev)
+            blocks, torch.arange(NB + 1, dtype=torch.int32, device=dev
+                                 ).expand(S, NB + 1).contiguous()
         ).to(torch.int32)
         gs_ptr, off_ptr = gs.data_ptr(), slot_off.data_ptr()
-    out = torch.empty((V, TO), dtype=torch.float32, device=dev)
+    out = torch.empty((S, V, TO), dtype=torch.float32, device=dev)
+    # per-slot offsets in elements, in csrc/span_conv.cu's SlotStrides order
+    strides = (ctypes.c_longlong * 11)(Vin, Vin * TC, 3 * V, V, G * NB,
+                                       G * NB, NB, 0, 4 * JS, NB + 1, V * TO)
     X, Y, Z = plan.in_dims
     sx, sy, sz = plan.stride3
     px, py, pz = plan.pad3
     geom = (V, Vin, NB, bs, G, kx, TC, TO, span, X, Y, Z, sx, sy, sz, px, py,
             pz)
-    plan_ptrs = (ocoords.data_ptr(), ovalid.data_ptr(), plan.sb.data_ptr(),
-                 plan.emp.data_ptr(), dead.data_ptr(), plan.gp.data_ptr(),
+    plan_ptrs = (ocoords.data_ptr(), ovalid.data_ptr(), sb.data_ptr(),
+                 emp.data_ptr(), dead.data_ptr(), plan.gp.data_ptr(),
                  gs_ptr, JS, off_ptr, out.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = SPAN_KERNELS.lib()
@@ -737,13 +757,78 @@ def span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
             2 if TC % 2 == 0 and align % 4 == 0 else 1)
         err = lib.span_conv_mma(
             x_keys.data_ptr(), feats.data_ptr(), wp.data_ptr(), *plan_ptrs,
-            *geom, wp.shape[1], wp.shape[2], nw8, ntiles, vec, stream)
+            *geom, wp.shape[1], wp.shape[2], nw8, ntiles, vec, S,
+            ctypes.addressof(strides), stream)
     else:
         err = lib.span_conv_f32(x_keys.data_ptr(), feats.data_ptr(),
-                                wg.data_ptr(), *plan_ptrs, *geom, stream)
+                                wg.data_ptr(), *plan_ptrs, *geom, S,
+                                ctypes.addressof(strides), stream)
     if err:
         raise RuntimeError(f"span_conv launch failed: CUDA error {err}")
     SPAN_KERNELS.main_launches += 1
     if JS:
         SPAN_KERNELS.slot_launches += 1
-    return out
+    return out if batched else out[0]
+
+
+# -------------------------------------------------------------------- op
+def _plan_geom(plan: SpanPlan) -> list[int]:
+    """The plan's static geometry as the op's int list."""
+    return [*plan.kernel3, *plan.stride3, *plan.pad3, *plan.in_dims,
+            plan.span, plan.bs]
+
+
+def _plan_of(sb, emp, gp, gs, geom) -> SpanPlan:
+    """A plan from the op's operands (what the convs read of it)."""
+    k3, s3, p3, d3 = (tuple(geom[i:i + 3]) for i in (0, 3, 6, 9))
+    return SpanPlan(sb=sb, se=None, emp=emp, gp=gp, n_overflow=None, gs=gs,
+                    kernel3=k3, stride3=s3, pad3=p3, in_dims=d3,
+                    span=geom[12], bs=geom[13])
+
+
+@torch.library.custom_op("insmos::span_conv", mutates_args=(),
+                         device_types="cpu")
+def span_conv_op(x_keys: torch.Tensor, feats: torch.Tensor, wg: torch.Tensor,
+                 out_coords: torch.Tensor, out_valid: torch.Tensor,
+                 sb: torch.Tensor, emp: torch.Tensor, gp: torch.Tensor,
+                 gs: torch.Tensor, geom: list[int]) -> torch.Tensor:
+    """The span conv on folded weights (span_conv_core_plain's contract,
+    the plan given by its tensors and ``geom``, see _plan_geom): the plain
+    version on the CPU, the CUDA kernel on the card."""
+    return span_conv_core_plain(x_keys, feats, wg, out_coords, out_valid,
+                                _plan_of(sb, emp, gp, gs, geom))
+
+
+@span_conv_op.register_kernel("cuda")
+def _span_conv_op_cuda(x_keys, feats, wg, out_coords, out_valid, sb, emp, gp,
+                       gs, geom):
+    return span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
+                               _plan_of(sb, emp, gp, gs, geom))
+
+
+@span_conv_op.register_vmap
+def _span_conv_vmap(info, in_dims, x_keys, feats, wg, out_coords, out_valid,
+                    sb, emp, gp, gs, geom):
+    """The op over a slot axis: one kernel launch over all slots on the
+    card (the folded weight and the group table shared, as the slots share
+    the model), the plain version slot by slot on the CPU."""
+    if in_dims[2] is not None or in_dims[7] is not None:
+        raise ValueError("span_conv over slots needs one weight and group "
+                         "table for all slots")
+    S = info.batch_size
+
+    def slots(t, d):
+        return t.movedim(d, 0) if d is not None else t.expand(S, *t.shape)
+
+    x_keys, feats, out_coords, out_valid, sb, emp, gs = (
+        slots(t, d) for t, d in zip(
+            (x_keys, feats, out_coords, out_valid, sb, emp, gs),
+            (in_dims[i] for i in (0, 1, 3, 4, 5, 6, 8))))
+    if feats.is_cuda:
+        return span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
+                                   _plan_of(sb, emp, gp, gs, geom)), 0
+    return torch.stack([
+        span_conv_core_plain(x_keys[s], feats[s], wg, out_coords[s],
+                             out_valid[s], _plan_of(sb[s], emp[s], gp, gs[s],
+                                                    geom))
+        for s in range(S)]), 0

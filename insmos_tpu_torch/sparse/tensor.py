@@ -2,7 +2,8 @@
 
 Sites are stored in ascending linearized-key order; padding rows carry
 KEY_SENTINEL, sort last, and have ``valid == False``, so valid rows are a
-prefix.
+prefix. A SparseTensor is a pytree (its tensors the leaves, ``dims`` static),
+so a function under ``torch.func.vmap`` can return one.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils import _pytree
 
 KEY_SENTINEL = 2**31 - 1  # int32 max
 
@@ -41,3 +43,10 @@ class SparseTensor:
             self.coords, self.keys, self.feats.new_zeros((self.capacity, 0)),
             self.valid, self.dims,
         )
+
+
+_pytree.register_pytree_node(
+    SparseTensor,
+    lambda x: ((x.coords, x.keys, x.feats, x.valid), x.dims),
+    lambda leaves, dims: SparseTensor(*leaves, dims),
+)

@@ -25,9 +25,8 @@ def unique_voxels(coords, dims, capacity: int, point_valid=None,
     n = coords.shape[0]
     keys = linearize_coords(coords, dims, point_valid)
     sk, perm = torch.sort(keys, stable=True)
-    is_first = torch.ones(n, dtype=torch.bool, device=dev)
-    is_first[1:] = sk[1:] != sk[:-1]
-    is_first &= sk != KEY_SENTINEL
+    is_first = torch.cat([torch.ones_like(sk[:1], dtype=torch.bool),
+                          sk[1:] != sk[:-1]]) & (sk != KEY_SENTINEL)
     group = torch.cumsum(is_first.to(torch.int64), 0) - 1
     group = torch.where(sk == KEY_SENTINEL, -1, group)
     n_groups = torch.clamp(group.max() + 1, min=0)
@@ -40,15 +39,15 @@ def unique_voxels(coords, dims, capacity: int, point_valid=None,
     first_idx = torch.full((n,), _I32_MAX, dtype=torch.int64,
                            device=dev).scatter_reduce(
         0, gsafe, torch.where(group >= 0, perm, _I32_MAX), reduce="amin")
-    counts_full = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+    counts_full = torch.zeros(n, dtype=torch.int64, device=dev).index_add(
         0, gsafe, (group >= 0).to(torch.int64))
 
     group_alive = torch.arange(n, device=dev) < n_groups
     if first_occurrence_cap:
         occ_key = torch.where(group_alive, first_idx, _I32_MAX)
         occ_perm = torch.sort(occ_key, stable=True).indices
-        occ_rank = torch.empty(n, dtype=torch.int64, device=dev)
-        occ_rank[occ_perm] = torch.arange(n, device=dev)
+        occ_rank = torch.empty(n, dtype=torch.int64, device=dev).index_put(
+            (occ_perm,), torch.arange(n, device=dev))
         keep_group = group_alive & (occ_rank < capacity)
     else:
         keep_group = group_alive & (torch.arange(n, device=dev) < capacity)
@@ -61,11 +60,12 @@ def unique_voxels(coords, dims, capacity: int, point_valid=None,
 
     safe_rank = torch.where(out_rank >= 0, out_rank, capacity)
     vox_keys = torch.full((capacity + 1,), KEY_SENTINEL, dtype=torch.int64,
-                          device=dev)
-    vox_keys[safe_rank] = torch.where(keep_group, group_key, KEY_SENTINEL)
+                          device=dev).index_put(
+        (safe_rank,), torch.where(keep_group, group_key, KEY_SENTINEL))
     vox_keys = vox_keys[:capacity].to(torch.int32)
-    vox_counts = torch.zeros(capacity + 1, dtype=torch.int64, device=dev)
-    vox_counts[safe_rank] = torch.where(keep_group, counts_full, 0)
+    vox_counts = torch.zeros(capacity + 1, dtype=torch.int64,
+                             device=dev).index_put(
+        (safe_rank,), torch.where(keep_group, counts_full, 0))
     vox_counts = vox_counts[:capacity].to(torch.int32)
     vox_valid = vox_keys != KEY_SENTINEL
     vox_coords = torch.where(
@@ -74,10 +74,10 @@ def unique_voxels(coords, dims, capacity: int, point_valid=None,
     )
 
     pt_out = torch.where(group >= 0, out_rank[gsafe], -1)
-    point_to_voxel = torch.empty(n, dtype=torch.int32, device=dev)
-    point_to_voxel[perm] = pt_out.to(torch.int32)
-    point_slot = torch.empty(n, dtype=torch.int32, device=dev)
-    point_slot[perm] = slot_sorted.to(torch.int32)
+    point_to_voxel = torch.empty(n, dtype=torch.int32, device=dev).index_put(
+        (perm,), pt_out.to(torch.int32))
+    point_slot = torch.empty(n, dtype=torch.int32, device=dev).index_put(
+        (perm,), slot_sorted.to(torch.int32))
 
     sites = SparseTensor(
         coords=vox_coords, keys=vox_keys,
@@ -105,8 +105,8 @@ def voxelize_points(points, point_valid, pc_range, voxel_size, dims,
     # the same on every run (a float index_add_ on CUDA is not)
     cell = torch.where(in_mean, p2v.to(torch.int64) * M + slot, capacity * M)
     per_slot = torch.zeros(((capacity + 1) * M, points.shape[1]),
-                           dtype=points.dtype, device=dev)
-    per_slot[cell] = points
+                           dtype=points.dtype, device=dev).index_put(
+                               (cell,), points)
     per_slot = per_slot.view(capacity + 1, M, -1)
     feat_sum = per_slot[:, 0]
     for s in range(1, M):

@@ -5,13 +5,14 @@ the JAX package's and against the port's own single-stream pipeline, and
 Two sequences stream through two slots for four steps; slot 1 idles on the
 third step and takes its next scan on the fourth, in both modes (ref-exact
 on a turning ego, fixed-frame incremental on a moving one). Tiny config,
-float32, the same numpy weights on both sides, on the CPU. Against the JAX
-package's pod (one CPU device, slots_per_device=2, its vmapped step on its
-windowed engine): point logits within atol = rtol = 1e-4 (the JAX
-package's own pod-vs-single tolerance), the overflow counters exactly,
-kept boxes as tests/test_torch_model.py checks them. Against the port's
-single-stream pipeline, which runs the same code on the same inputs:
-every output equal."""
+float32, the same numpy weights on both sides, on the CPU. Both pods run one
+step vmapped over their slots. Against the JAX package's pod (one CPU
+device, slots_per_device=2, its vmapped step on its windowed engine): point
+logits within atol = rtol = 1e-4 (the JAX package's own pod-vs-single
+tolerance), the overflow counters exactly, kept boxes as
+tests/test_torch_model.py checks them. Against the port's single-stream
+pipeline, which runs the same code on the same inputs one stream at a time:
+every output equal. The NMS makes one device-to-host copy a pod step."""
 
 import dataclasses
 
@@ -20,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import Mesh
+from torch.utils import _pytree
 
 from insmos_tpu.pipeline import PodInferencePipeline as JaxPod
 from insmos_tpu_torch.cli import predict_mos
 from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
+from insmos_tpu_torch.ops.nms import NMS_COPIES
 from insmos_tpu_torch.pipeline import (InferencePipeline, PodInferencePipeline,
                                        fixed_frame_transform)
 from insmos_tpu_torch.utils.checkpoint import save_checkpoint_from_trees
@@ -88,10 +91,10 @@ def _inputs(streams, row):
     return scans, tfs
 
 
-def _bufs(pipe):
-    return {k: (v.clone() if isinstance(v, torch.Tensor)
-                else {q: w.clone() for q, w in v.items()})
-            for k, v in pipe._buf.items()}
+def _bufs(pod, i):
+    """Slot ``i``'s window and caches: its rows of the stacked buffer of
+    the pod's one device."""
+    return _pytree.tree_map(lambda t: t[i].clone(), pod._buf[0])
 
 
 @pytest.fixture(scope="module", params=MODES)
@@ -107,16 +110,18 @@ def pod_run(request):
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1),
                 (cfg.runtime.data_axis,))
     jpod = JaxPod(cfg, params, state, mesh=mesh, slots_per_device=2)
-    got, ref, idle_before, idle_after = [], [], None, None
+    got, ref, idle_before, idle_after, copies = [], [], None, None, []
     pod.reset()
     jpod.reset()
     for t, row in enumerate(sched):
         scans, tfs = _inputs(streams, row)
         if t == IDLE[0]:
-            idle_before = _bufs(pod.slots[IDLE[1]])
+            idle_before = _bufs(pod, IDLE[1])
+        NMS_COPIES.reset_counts()
         got.append(pod.push_scans(scans, tfs))
+        copies.append(NMS_COPIES.copies)
         if t == IDLE[0]:
-            idle_after = _bufs(pod.slots[IDLE[1]])
+            idle_after = _bufs(pod, IDLE[1])
         ref.append(jax.tree_util.tree_map(np.array,
                                           jpod.push_scans(scans, tfs)))
     single = []
@@ -128,7 +133,7 @@ def pod_run(request):
     return dict(mode=mode, pcfg=pcfg, params=params, state=state,
                 streams=streams, sched=sched, pod=pod, got=got, ref=ref,
                 single=single, idle_before=idle_before,
-                idle_after=idle_after)
+                idle_after=idle_after, copies=copies)
 
 
 def _slot(out, i):
@@ -192,6 +197,11 @@ def test_pod_slots_equal_single_stream(pod_run):
     assert n == 2 * N_STEPS - 1
 
 
+def test_pod_nms_copies_once_a_step(pod_run):
+    """The NMS of both slots made one device-to-host copy at every step."""
+    assert pod_run["copies"] == [1] * N_STEPS
+
+
 def test_idle_slot_keeps_its_window(pod_run):
     """The idle slot's window (and caches) are untouched, its rows zero,
     its box mask all False; the active slot stepped."""
@@ -228,19 +238,20 @@ def test_pod_rejects_bad_inputs(pod_run):
     if pod_run["mode"] == "incremental":
         with pytest.raises(ValueError, match="slot 1"):
             pod.push_scans([s, s], [None, rot])
-    assert all(slot._buf is None for slot in pod.slots)
+    assert pod._buf is None
 
 
 def test_two_devices_place_slots_and_agree(pod_run):
     """devices=["cpu", "cpu"], one slot each: each device gets its own
-    replica and the slots give the one-device pod's outputs."""
+    replica, its slot's stacked window and its own vmapped step, and the
+    slots give the one-device pod's outputs."""
     pcfg = pod_run["pcfg"]
     model = make_model(pcfg, pod_run["params"], pod_run["state"], "cpu")
     pod = PodInferencePipeline(pcfg, model, ["cpu", "cpu"],
                                slots_per_device=1)
-    assert pod.n_slots == 2 and pod.slots[0].model is model
-    assert pod.slots[1].model is not model
-    assert all(slot.device == torch.device("cpu") for slot in pod.slots)
+    assert pod.n_slots == 2 and pod.models[0] is model
+    assert pod.models[1] is not model
+    assert pod.devices == [torch.device("cpu")] * 2
     for t, row in enumerate(pod_run["sched"][:2]):
         out = pod.push_scans(*_inputs(pod_run["streams"], row))
         for k in ("point_logits", "scores", "box_mask"):
