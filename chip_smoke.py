@@ -22,8 +22,16 @@ entry points: predict_mos on two KITTI-format sequences of the fixture
 float32, with the gates, the span-conv launches and scans/s, each step
 held against the committed JAX record
 (tests/torch_goldens/stream_record.npz, tools/stream_record.py), the
-float32 runs repeated bit for bit; then refine, and evaluate_mos on a
-synthetic sequence. The pod phase runs multi-stream inference
+float32 runs repeated bit for bit; then both sequences again on the
+calibrated weights (tools/stream_record.calibrated_params: BN statistics
+from data, so the heatmap follows the scan and a few dozen boxes are
+kept), held against the calibrated JAX record (kept boxes one to one
+above a score margin, logits inside them); then refine, and evaluate_mos
+on a synthetic sequence. The overflow phase holds the kernels against
+their plain version on every span conv whose plan leaves rows uncovered
+on seed 0's streams (warm-up steps, ref-exact steps 15-19), and their
+sums against the JAX kernel's record (tests/torch_overflow_record.py).
+The pod phase runs multi-stream inference
 (PodInferencePipeline: one step vmapped over the slots, one span-kernel
 launch a conv for all slots; 2 slots on two streams of each mode, bf16 and
 float32) against single-stream pipelines, with the gates (the span
@@ -32,7 +40,8 @@ tests/torch_goldens/plan_record.json, tests/torch_plan_record.py), an idle
 slot and a rejected rotation, holds the batched kernel against its plain
 version and against one launch a slot on every conv of a pod step, reads
 the aggregate scans/s at S = 1, 2, 4, 8 beside the single-stream step,
-and holds ``predict_mos --pod`` against the serial CLI. Then it runs
+holds ``predict_mos --pod`` against the serial CLI, and runs the pod in
+float32 on the calibrated weights. Then it runs
 the
 span-conv design probes (insmos_tpu_torch.tools.probe_extract, with and
 without --production, and probe_dotshapes) at their full case lists, each
@@ -97,6 +106,7 @@ from insmos_tpu_torch.tools import probe_extract as PE
 from insmos_tpu_torch.tools import probe_pallas_rowconv as RC
 from insmos_tpu_torch.tools import probe_tala as PT
 from insmos_tpu_torch.tools import measure_train_step as MT
+from insmos_tpu_torch.tools import overflow_plans as OP
 from insmos_tpu_torch.tools import stream_record as SR
 from insmos_tpu_torch.tools import train_record as TR
 from insmos_tpu_torch.utils.checkpoint import (load_checkpoint,
@@ -127,6 +137,12 @@ TOL = 5e-4
 # INC_TOL_STREAM bounds the largest difference there and INC_SHARE_STREAM
 # the share of points beyond 1e-3.
 INC_TOL = 5e-3
+# the float32 kernel's output sum on an overflowing warm-up plan against
+# the overflow record's (the JAX kernel's on the CPU), as a share of the
+# record's sum of |out|: the CPU comparison's float32 tolerance
+# (tests/torch_overflow_record.TOL); the card's inputs come from its own
+# float32 run of the steps before
+OVERFLOW_SUM_TOL = 1e-4
 INC_TOL_STREAM = 0.25
 INC_SHARE_STREAM = 0.05
 # span-conv launches a step of the main path in both modes (MotionNet and
@@ -590,12 +606,13 @@ def versus_direct(icfg, cfg, model, scans, tfs):
     return rows
 
 
-def cli_run(ckpt, root, out, seq, fixed):
+def cli_run(ckpt, root, out, seq, fixed, maps=None):
     """One predict_mos run through its entry point, on the card, over one
-    sequence. Returns (its stats, the captured steps' outputs)."""
+    sequence. Returns (its stats, the captured steps' outputs; with
+    ``maps``, SR.capturing's, the head's maps and the scans too)."""
     argv = ["--ckpt", ckpt, "--data_path", root, "--sequences", str(seq),
             "--out", out] + (["--fixed-frame"] if fixed else [])
-    with SR.capturing(predict_mos) as steps:
+    with SR.capturing(predict_mos, maps) as steps:
         stats = predict_mos.main(argv)
     return stats, steps
 
@@ -649,6 +666,8 @@ def phase_cli(card):
        committed JAX record (``tools/stream_record.py``) within
        ``stream_record.TOLERANCES``, every counter equal. The float32 run
        of each sequence is made twice and must repeat bit for bit.
+       Then the same runs on the calibrated weights against the
+       calibrated record (:func:`cli_calibrated`).
     2. ``refine`` over what the bf16 runs wrote.
     3. ``predict_mos``, ``refine`` and ``evaluate_mos`` on a synthetic
        sequence with labels.
@@ -742,6 +761,10 @@ def phase_cli(card):
                         failures.append(f"{key}: a second run differs")
                     print(f"  float32 run repeated: equal bit for bit {same}")
 
+        # 1b. the calibrated record: the detection branch decided by the
+        # scan, both routes against its JAX record
+        calibrated = cli_calibrated(card, cfg, work, root, failures)
+
         # 2. refine over the main path's output
         pred_root = os.path.join(work, f"preb_{cfg.runtime.compute_dtype}",
                                  cfg.experiment_id)
@@ -777,7 +800,148 @@ def phase_cli(card):
     if failures:
         raise AssertionError("phase_cli: " + " | ".join(failures))
     return dict(parity=parity, runs=runs, repeat=repeat, launches=launches,
-                evaluate=ious)
+                evaluate=ious, calibrated=calibrated)
+
+
+def fmt(v) -> str:
+    """A reading for a line of output: floats to 3 figures."""
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(fmt(x) for x in v) + "]"
+    return f"{v:.3g}" if isinstance(v, float) else str(v)
+
+
+def cli_calibrated(card, cfg, work, root, failures):
+    """phase_cli's second record: ``predict_mos`` on both sequences, in
+    bf16 and float32, from a port checkpoint of the calibrated weights
+    (``stream_record.calibrated_params``: BN statistics set from data, the
+    class head's bias and scale), each step held against the calibrated
+    JAX record (``stream_record.compare_calibrated``,
+    TOLERANCES_CALIBRATED): kept boxes one to one above the margin, the
+    logits at the seeded and the in-box samples, every counter. Prints per
+    step the gated candidates, the kept count, unmatched and below-margin
+    boxes and the largest box and logit errors, and each run's scans/s."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    rcfg, meta, record = SR.load_record(os.path.join(here,
+                                                     SR.RECORD_CALIBRATED))
+    if rcfg != dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, compute_dtype="float32")):
+        raise AssertionError("the calibrated record is not at the full "
+                             "default Config in float32")
+    params, state = SR.calibrated_params(cfg)
+    if meta["fingerprint"] != SR.fingerprint(params, state):
+        raise AssertionError("the calibrated record's weights are not "
+                             "calibrated_params'")
+    W = cfg.model.n_past_steps
+    read = {}
+    for route in ("bfloat16", "float32"):
+        cfg_r = dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, compute_dtype=route))
+        ckpt = os.path.join(work, f"ckpt_cal_{route}")
+        save_checkpoint_from_trees(ckpt, cfg_r, params, state)
+        out = os.path.join(work, f"preb_cal_{route}")
+        pred_root = os.path.join(out, cfg_r.experiment_id)
+        for name, (seq, fixed) in SR.SEQUENCES.items():
+            key = f"calibrated {route} {name}"
+            SC.SPAN_KERNELS.reset_counts()
+            stats, steps = cli_run(ckpt, root, out, seq, fixed, SR.with_maps)
+            n_launch = SC.SPAN_KERNELS.main_launches
+            per = stats["per_sequence"][0]
+            gates = [step_gates(i, W, o) for i, (o, _) in enumerate(steps)]
+            rows = SR.summarize_calibrated(cfg_r, steps, pred_root, seq,
+                                           record[name])
+            del steps
+            try:
+                check_gates(gates, {"main": n_launch,
+                                    "slots": SC.SPAN_KERNELS.slot_launches},
+                            W)
+            except AssertionError as e:
+                failures.append(f"{key}: {e}")
+            if n_launch != SPAN_CONVS_PER_STEP * len(rows):
+                failures.append(f"{key}: {n_launch} span-conv launches "
+                                f"over {len(rows)} steps")
+            res = SR.compare_calibrated(record[name], rows, W, route)
+            failures += [f"{key}: {f}" for f in res["failures"]]
+            res["scans_per_s"] = per["scans"] / per["seconds"]
+            read[key] = res
+            cols = ("n_gated", "n_gated_got", "boxes", "boxes_got",
+                    "boxes_unmatched", "below_margin", "box_abs", "max_abs",
+                    "box_logit_abs", "n_box_sample")
+            print(f"cli, calibrated weights, {key}: {per['scans']} scans at "
+                  f"{res['scans_per_s']:.3f} scans/s on {card}; vs the "
+                  f"calibrated JAX record ({res['compared']} of {len(rows)} "
+                  f"steps compared, tolerances "
+                  f"{SR.TOLERANCES_CALIBRATED[route]}): kept boxes matched "
+                  f"one to one above the margin, unmatched at most "
+                  f"{res['boxes_unmatched']}, below the margin at most "
+                  f"{res['below_margin']}, matched max abs (position and "
+                  f"size, yaw, score) {fmt(res['box_abs'])}; logits max abs "
+                  f"{res['max_abs']:.3g}"
+                  f" (seeded sample), {res['box_logit_abs']:.3g} (in-box "
+                  f"sample); {len(res['failures'])} failures")
+            print("  per step " + " ".join(cols) + ": " + "; ".join(
+                f"{st['step']}: " + " ".join(fmt(st[c]) for c in cols)
+                for st in res["steps"] if st["compared"]))
+    return read
+
+
+def phase_overflow(card):
+    """The warm-up span plans that leave rows uncovered, on the card: seed
+    0's ref-exact and fixed-frame streams (tools/overflow_plans.STREAMS)
+    through the pipeline on the card in float32 with the calibrated
+    weights, every span conv whose plan reports an overflow captured. Each
+    must be one that the overflow record holds (tests/
+    torch_overflow_record.py: the port's plain version equal to the JAX
+    span kernel on every row there, the uncovered ones included). Per
+    conv: the kernel (float32 operands, and bf16) against the plain
+    version within TOL x max(1, |plain|), and the float32 kernel's output
+    sum against the record's within OVERFLOW_SUM_TOL of its sum of
+    |out|."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, OP.RECORD)) as f:
+        ref = json.load(f)["convs"]
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, compute_dtype="float32"))
+    params, state = SR.calibrated_params(cfg)
+    read, failures = {}, []
+    for stream, n_steps in OP.STREAMS:
+        caps = OP.capture(cfg, stream, n_steps, params, state, "cuda")
+        for name, args in caps.items():
+            x_keys, feats_cat, weights, *rest = args
+            got = SC.span_conv_parts(*args)
+            plain = SC.span_conv_parts_plain(*args)
+            b16 = (x_keys, feats_cat.bfloat16(),
+                   [w.bfloat16() for w in weights], *rest)
+            plain16 = SC.span_conv_parts_plain(*b16)
+            e32 = float((got - plain).abs().max()) / max(
+                1.0, float(plain.abs().max()))
+            e16 = float((SC.span_conv_parts(*b16) - plain16).abs().max()) / \
+                max(1.0, float(plain16.abs().max()))
+            r = dict(rel_err_f32=e32, rel_err_bf16=e16,
+                     uncovered_rows=int(SC.uncovered_rows(
+                         x_keys, rest[1], rest[2], rest[3]).sum()))
+            if name in ref:
+                r["sum_err"] = OP.sum_error(OP.sums(got), ref[name])
+            read[name] = r
+            if max(e32, e16) > TOL or name not in ref or \
+                    r["sum_err"] > OVERFLOW_SUM_TOL:
+                failures.append(f"{name}: {r}")
+        del caps
+    missing = sorted(set(ref) - set(read))
+    if missing:
+        failures.append(f"record convs not met on the card: {missing}")
+    print(f"overflowing warm-up plans on {card}: {len(read)} span convs on "
+          f"{len({n.rsplit('/', 1)[0] for n in read})} plans; kernel vs "
+          f"plain max rel err f32 "
+          f"{max(r['rel_err_f32'] for r in read.values()):.3g}, bf16 "
+          f"{max(r['rel_err_bf16'] for r in read.values()):.3g} (tolerance "
+          f"{TOL}); output sums vs the overflow record max "
+          f"{max(r.get('sum_err', 0.0) for r in read.values()):.3g} of the "
+          f"sum of |out| (tolerance {OVERFLOW_SUM_TOL}); " + json.dumps(read))
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("phase_overflow: " + " | ".join(failures))
+    return read
 
 
 def phase_probes():
@@ -1350,6 +1514,10 @@ def phase_pod(card, cfg, params, state, model):
        printed.
     6. predict_mos --pod --slots_per_device 2 on phase_cli's two sequences
        in float32: its labels equal the serial CLI's byte for byte.
+    7. The calibrated weights (stream_record.calibrated_params, a few
+       dozen keepers a step): 1 and 3 again in float32 on both modes, the
+       slots bit for bit against the single stream, one NMS host copy a
+       pod step, the pair-list overflows printed.
     Any failed check raises after the readings are printed."""
     failures, read = [], {}
     record = load_plan_record()
@@ -1411,6 +1579,20 @@ def phase_pod(card, cfg, params, state, model):
                     or not k["equal_single_launches"]:
                 failures.append(f"pod {name}: batched span kernel {k}")
     read["launches"] = launches
+    # the calibrated weights (a few dozen keepers a step, the NMS's
+    # deployment regime): float32 slots bit for bit against the single
+    # stream, one NMS host copy a pod step, pair-list overflows printed
+    pc, sc = SR.calibrated_params(cfg32)
+    model_c = make_model(cfg32, pc, sc, "cuda")
+    for name, fixed in (("ref-exact", False), ("fixed-frame", True)):
+        c = incremental_config(cfg32) if fixed else cfg32
+        streams = [make_fixed_frame_stream(c, N_SCANS, seed=s)[:2] if fixed
+                   else make_stream(c, N_SCANS, seed=s) for s in (0, 1)]
+        pod, read[f"{name} calibrated float32"] = check_pod(
+            f"{name} calibrated", c, model_c, streams, "float32", failures,
+            [record[f"{name}/{s}"] for s in (0, 1)])
+        del pod
+    del model_c
     rates = [pod_rate(cfg, model, S, record) for S in (0,) + POD_SLOTS]
     read["rates"] = rates
     single = rates[0]
@@ -1562,6 +1744,7 @@ def main() -> int:
     step_ms, gates, launches, full = phase_main(cfg, model, scans, tfs)
     inc = phase_incremental(cfg, model)
     cli = phase_cli(card)
+    overflow = phase_overflow(card)
     pod = phase_pod(card, cfg, params, state, model)
 
     med = statistics.median(step_ms[i] for i in full)
@@ -1612,7 +1795,8 @@ def main() -> int:
             json.dump(dict(card=card, report=report, classes=classes,
                            step_ms=step_ms, gates=gates, ref_err=ref_err,
                            incremental=inc, incremental_ref_err=inc_ref_err,
-                           cli=cli, train=train, pod=pod, dp=dp,
+                           cli=cli, overflow=overflow, train=train,
+                           pod=pod, dp=dp,
                            probes=probes), fh, indent=1)
     for name, c in sorted(list(classes.items()) + [
             ("(incremental) " + k, v) for k, v in inc["classes"].items()]):

@@ -374,9 +374,9 @@ def _plan_finish(x_keys, pos2, ctx, exact_stats: bool = False) -> SpanPlan:
         gs = torch.zeros((4, 0), dtype=i32, device=dev)
 
     if exact_stats:
-        n_overflow = _exact_uncovered(x_keys, ocoords, ovalid, ky, kz, kx,
-                                      ctx["stride3"], ctx["pad3"],
-                                      ctx["in_dims"], span, bs, sb, gs)
+        n_overflow = _uncovered(x_keys, ocoords, ovalid, ky, kz, kx,
+                                ctx["stride3"], ctx["pad3"], ctx["in_dims"],
+                                span, bs, sb, gs).sum()
     return SpanPlan(
         sb=sb.to(i32), se=se.to(i32), emp=emp, gp=gp,
         n_overflow=n_overflow.to(i32), gs=gs,
@@ -385,10 +385,29 @@ def _plan_finish(x_keys, pos2, ctx, exact_stats: bool = False) -> SpanPlan:
     )
 
 
-def _exact_uncovered(x_keys, ocoords, ovalid, ky, kz, kx, stride3, pad3,
-                     in_dims, span, bs, sb, gs):
-    """Exact count of (site, group) window rows that neither the main
-    window nor the plan's slots cover (tools only)."""
+def uncovered_rows(x_keys, out_coords, out_valid, plan: SpanPlan):
+    """(V,) bool: output rows with a (site, group) window row that neither
+    the plan's main window nor its slots cover, so some of whose taps the
+    conv leaves out (tools only; their count is
+    ``make_span_plan(..., exact_stats=True).n_overflow``)."""
+    groups = _groups_yz(plan.kernel3)
+    V = out_coords.shape[0]
+    Vp = -(-V // plan.bs) * plan.bs
+    dev = x_keys.device
+    ky = torch.tensor([g[0] for g in groups], dtype=torch.int64, device=dev)
+    kz = torch.tensor([g[1] for g in groups], dtype=torch.int64, device=dev)
+    rows = _uncovered(
+        x_keys, _pad_rows(out_coords.to(torch.int32), Vp, 0),
+        _pad_rows(out_valid.to(torch.int32), Vp, 0), ky, kz,
+        int(plan.kernel3[0]), plan.stride3, plan.pad3, plan.in_dims,
+        plan.span, plan.bs, plan.sb, plan.gs)
+    return rows.any(dim=0)[:V]
+
+
+def _uncovered(x_keys, ocoords, ovalid, ky, kz, kx, stride3, pad3,
+               in_dims, span, bs, sb, gs):
+    """(G, Vp) bool: the (group, site) window rows that neither the main
+    window nor the plan's slots cover."""
     X, Y, Z = in_dims
     sx, sy, sz = stride3
     px, py, pz = pad3
@@ -421,7 +440,7 @@ def _exact_uncovered(x_keys, ocoords, ovalid, ky, kz, kx, stride3, pad3,
     k_at_pos = kpad[pos_all.clamp(0, Vin)]
     start_at = (sb.to(torch.int64) * 16)[:, blk]
     start_viol = (pos_all < start_at) & (k_at_pos < q_all + kx)
-    return (row_ok & ((q_all + kx > Kcov) | start_viol)).sum()
+    return row_ok & ((q_all + kx > Kcov) | start_viol)
 
 
 # --------------------------------------------------------------------- op

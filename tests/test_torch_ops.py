@@ -108,6 +108,63 @@ def test_greedy_nms_separated_boxes(max_out):
     assert 0 < tm.sum() < valid.sum()
 
 
+def _deployment_candidates(rng, K, dense):
+    """K candidates as decode_and_nms hands them to the NMS: a few dozen
+    above the gate, in overlapping clusters with distinct scores, a few
+    exact score ties between overlapping boxes (broken by index), the rest
+    below the gate; with ``dense``, one cluster of 460 live boxes whose
+    bounding circles all touch (over PAIRS_PER_BOX pairs a box of K)."""
+    boxes = _boxes(rng, K, 60.0, (0.5, 2.0))
+    scores = rng.uniform(0.0, 0.1, K).astype(np.float32)
+    valid = np.zeros(K, bool)
+    live = rng.choice(K, 520 if dense else 48, replace=False)
+    centres = rng.uniform(-50, 50, (12, 2))
+    boxes[live[:48], :2] = (centres[np.arange(48) % 12]
+                            + rng.uniform(-1.0, 1.0, (48, 2)))
+    if dense:
+        boxes[live[48:], :2] = rng.uniform(-0.8, 0.8, (len(live) - 48, 2))
+        boxes[live[48:], 3:5] = rng.uniform(1.5, 2.0, (len(live) - 48, 2))
+    s = 0.1 + 0.9 * (rng.permutation(len(live)) + 1) / (len(live) + 1)
+    scores[live] = s.astype(np.float32)
+    valid[live] = True
+    # exact ties between boxes of one cluster: the lower index goes first
+    for a, b in ((0, 12), (1, 13), (2, 26)):
+        scores[live[b]] = scores[live[a]]
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["deployment", "dense"])
+def test_greedy_nms_deployment_regime(dense):
+    """The NMS as the calibrated weights run it: K = 4096 candidates, a few
+    dozen above the gate in overlapping clusters, score ties broken by
+    index. greedy_nms and greedy_nms_slots (S = 3, each slot its own
+    candidates) give the JAX greedy_nms's keep_idx and keep_mask exactly;
+    the dense cluster overflows the pair list (one more copy a call)."""
+    rng = np.random.default_rng(7 + dense)
+    K = 4096
+    slots = [_deployment_candidates(rng, K, dense) for _ in range(3)]
+    ref = [tuple(np.asarray(a) for a in jnms.greedy_nms(
+        jnp.asarray(b), jnp.asarray(s), jnp.asarray(v), 0.01, 500))
+        for b, s, v in slots]
+    assert all(3 <= m.sum() < v.sum() for (_, m), (_, _, v) in zip(ref,
+                                                                     slots))
+    tnms.NMS_COPIES.reset_counts()
+    b, s, v = (torch.from_numpy(x) for x in slots[0])
+    ti, tm = tnms.greedy_nms(b, s, v, 0.01, 500)
+    np.testing.assert_array_equal(ti.numpy(), ref[0][0])
+    np.testing.assert_array_equal(tm.numpy(), ref[0][1])
+    assert (tnms.NMS_COPIES.copies, tnms.NMS_COPIES.overflows) == (
+        (2, 1) if dense else (1, 0))
+    tnms.NMS_COPIES.reset_counts()
+    bs, ss, vs = (torch.from_numpy(np.stack(x)) for x in zip(*slots))
+    ti, tm = tnms.greedy_nms_slots(bs, ss, vs, 0.01, 500)
+    for i, (ri, rm) in enumerate(ref):
+        np.testing.assert_array_equal(ti[i].numpy(), ri)
+        np.testing.assert_array_equal(tm[i].numpy(), rm)
+    assert (tnms.NMS_COPIES.copies, tnms.NMS_COPIES.overflows) == (
+        (2, 1) if dense else (1, 0))
+
+
 def test_decode_center_boxes():
     rng = np.random.default_rng(2)
     bp = rng.normal(size=(12, 10, 8)).astype(np.float32)
