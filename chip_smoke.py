@@ -83,14 +83,13 @@ import time
 import numpy as np
 import torch
 
-from insmos_tpu_torch import kernels, setup_device, tools
+from insmos_tpu_torch import kernels, obs, setup_device, tools
 from insmos_tpu_torch.cli import evaluate_mos, predict_mos, refine
 from insmos_tpu_torch.cli import train as train_cli
 from insmos_tpu_torch.config import Config
 from insmos_tpu_torch.data.kitti import load_files, read_point_cloud
 from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
 from insmos_tpu_torch.data.hdl64 import make_fixed_frame_stream, make_stream
-from insmos_tpu_torch.ops import nms as NMS
 from insmos_tpu_torch.pipeline import InferencePipeline, PodInferencePipeline
 from insmos_tpu_torch.sparse import slab as S
 from insmos_tpu_torch.sparse import span_conv as SC
@@ -458,6 +457,15 @@ def stream_gated(pipe, scans, tfs):
     return step_ms, gates
 
 
+def span_launches(before) -> dict:
+    """The span-kernel launches since the counter snapshot ``before``
+    (``obs.counters()``): all of them, and those that ran coverage
+    slots."""
+    moved = obs.since(before)
+    return {"main": moved["span_conv.launches"],
+            "slots": moved["span_conv.slot_launches"]}
+
+
 def check_gates(gates, launches, W):
     """The overflow gates and the launch counts of one streamed run.
     Returns the full-window steps and the warm-up span overflow per plan."""
@@ -483,10 +491,9 @@ def phase_main(cfg, model, scans, tfs):
     pipe = InferencePipeline(cfg, model, "cuda")
     W = cfg.model.n_past_steps
     P = cfg.runtime.max_points_per_scan
-    SC.SPAN_KERNELS.reset_counts()
+    c0 = obs.counters()
     step_ms, gates = stream_gated(pipe, scans, tfs)
-    launches = {"main": SC.SPAN_KERNELS.main_launches,
-                "slots": SC.SPAN_KERNELS.slot_launches}
+    launches = span_launches(c0)
     full, warm = check_gates(gates, launches, W)
     print(f"main path: {len(scans)} scans at the full default Config "
           f"(W={W}, P={P}); gates 0: dropped at every step, span_overflow at "
@@ -501,8 +508,8 @@ def phase_incremental(cfg, model):
     """The fixed-frame incremental mode at ``cfg`` (the JAX package's bench
     headline): kernel vs plain on every span conv of one full-window step,
     then the fixed-frame stream through InferencePipeline.push_scan with
-    the launch counts set to 0 just before and read just after, the gates
-    of the main path and no recovery step, then the direct pipeline on the
+    the launch counts read just before and just after, the gates of the
+    main path and no recovery step, then the direct pipeline on the
     same stream and on its points moved to voxel centres inside the
     MotionNet crop, stepped beside
     the incremental one (``versus_direct``): point logits within
@@ -515,10 +522,9 @@ def phase_incremental(cfg, model):
     err, _, classes, _ = phase_kernels(icfg, model, scans, tfs,
                                        "incremental")
     pipe = InferencePipeline(icfg, model, "cuda")
-    SC.SPAN_KERNELS.reset_counts()
+    c0 = obs.counters()
     step_ms, gates = stream_gated(pipe, scans, tfs)
-    launches = {"main": SC.SPAN_KERNELS.main_launches,
-                "slots": SC.SPAN_KERNELS.slot_launches}
+    launches = span_launches(c0)
     if pipe.n_full_steps:
         raise AssertionError(f"{pipe.n_full_steps} recovery steps on the "
                              "fixed-frame stream")
@@ -659,7 +665,7 @@ def phase_cli(card):
        full default Config, written through the port's own code, a port
        checkpoint of the JAX record's numpy weights, ``predict_mos`` on
        each in bf16 (the default) and in float32, with the span-kernel
-       launch counts set to 0 just before each run and read just after:
+       launch counts read just before each run and just after:
        gates of the main path, no recovery step on the fixed-frame stream,
        46 span-conv launches a step, the artifacts in the reference's
        formats, scans/s per sequence; every step held against the
@@ -698,10 +704,9 @@ def phase_cli(card):
             pred_root = os.path.join(out, cfg_r.experiment_id)
             for name, (seq, fixed) in SR.SEQUENCES.items():
                 key = f"{route} {name}"
-                SC.SPAN_KERNELS.reset_counts()
+                c0 = obs.counters()
                 stats, steps = cli_run(ckpt, root, out, seq, fixed)
-                n_launch = SC.SPAN_KERNELS.main_launches
-                n_slot = SC.SPAN_KERNELS.slot_launches
+                n_launch, n_slot = span_launches(c0).values()
                 if route == cfg.runtime.compute_dtype:
                     launches["main"] += n_launch
                     launches["slots"] += n_slot
@@ -842,18 +847,17 @@ def cli_calibrated(card, cfg, work, root, failures):
         pred_root = os.path.join(out, cfg_r.experiment_id)
         for name, (seq, fixed) in SR.SEQUENCES.items():
             key = f"calibrated {route} {name}"
-            SC.SPAN_KERNELS.reset_counts()
+            c0 = obs.counters()
             stats, steps = cli_run(ckpt, root, out, seq, fixed, SR.with_maps)
-            n_launch = SC.SPAN_KERNELS.main_launches
+            launches_seq = span_launches(c0)
+            n_launch = launches_seq["main"]
             per = stats["per_sequence"][0]
             gates = [step_gates(i, W, o) for i, (o, _) in enumerate(steps)]
             rows = SR.summarize_calibrated(cfg_r, steps, pred_root, seq,
                                            record[name])
             del steps
             try:
-                check_gates(gates, {"main": n_launch,
-                                    "slots": SC.SPAN_KERNELS.slot_launches},
-                            W)
+                check_gates(gates, launches_seq, W)
             except AssertionError as e:
                 failures.append(f"{key}: {e}")
             if n_launch != SPAN_CONVS_PER_STEP * len(rows):
@@ -946,7 +950,7 @@ def phase_overflow(card):
 
 def phase_probes():
     """The span-conv design probes through their entry points, each driven
-    with its launch counts set to 0 just before it and read just after.
+    with its launch counts read just before it and just after.
     Every probe holds each kernel output it times against the plain version
     on the same inputs and raises beyond its tolerance (probe_extract 5e-4,
     span_conv_apply 5e-4, probe_dotshapes 1e-4, x max(1, max|plain|)).
@@ -956,12 +960,11 @@ def phase_probes():
     PE.KERNEL.reset_counts()
     ext = PE.main()
     ext_launches = dict(PE.KERNEL.launches)
-    SC.SPAN_KERNELS.reset_counts()
+    c0 = obs.counters()
     prod = PE.main2()
     # every launch counts as a main-window launch; E's also run slots
-    prod_launches = {"D": (SC.SPAN_KERNELS.main_launches
-                           - SC.SPAN_KERNELS.slot_launches),
-                     "E": SC.SPAN_KERNELS.slot_launches}
+    n = span_launches(c0)
+    prod_launches = {"D": n["main"] - n["slots"], "E": n["slots"]}
     PD.KERNEL.reset_counts()
     dots = PD.main()
     dot_launches = dict(PD.KERNEL.launches)
@@ -1158,10 +1161,9 @@ def phase_train(card):
             json.dump(scfg.to_dict(), fh)
         out = os.path.join(work, "run")
         args = ["--config", cfg_path, "--data", root, "--out", out]
-        SC.SPAN_KERNELS.reset_counts()
+        c0 = obs.counters()
         ts = train_cli.main(args + ["--epochs", "2", "--bn_reest", "1"])
-        launches = {"main": SC.SPAN_KERNELS.main_launches,
-                    "slots": SC.SPAN_KERNELS.slot_launches}
+        launches = span_launches(c0)
         names = sorted(os.listdir(os.path.join(out, "ckpt")))
         last = os.path.join(out, "ckpt", "last")
         _, _, step, opt = load_checkpoint(last, "cuda", with_opt=True)
@@ -1212,22 +1214,21 @@ def outputs_equal(a, b) -> bool:
 def pod_steps(pod, streams, n):
     """``n`` lockstep steps of the streams (one (scans, tfs) a slot)
     through ``pod``, with the span-kernel launch counts and the NMS's host
-    copies set to 0 just before and read just after. Returns (per slot its
+    copies read just before and just after. Returns (per slot its
     step outputs, the launches, the NMS copies)."""
     S = len(streams)
     got = [[] for _ in range(S)]
-    SC.SPAN_KERNELS.reset_counts()
-    NMS.NMS_COPIES.reset_counts()
+    c0 = obs.counters()
     for t in range(n):
         out = pod.push_scans([sc[t] for sc, _ in streams],
                              [tf[t] for _, tf in streams])
         for i in range(S):
             got[i].append(pod_slot(out, i))
     torch.cuda.synchronize()
-    launches = {"main": SC.SPAN_KERNELS.main_launches,
-                "slots": SC.SPAN_KERNELS.slot_launches}
-    copies = {"copies": NMS.NMS_COPIES.copies,
-              "overflows": NMS.NMS_COPIES.overflows}
+    launches = span_launches(c0)
+    moved = obs.since(c0)
+    copies = {"copies": moved["nms.copies"],
+              "overflows": moved["nms.pair_overflows"]}
     return got, launches, copies
 
 
@@ -1447,14 +1448,14 @@ def pod_rate(cfg, model, S, record):
     for t in range(POD_WARM + POD_TIMED):
         if t == POD_WARM:
             torch.cuda.synchronize()
-            SC.SPAN_KERNELS.reset_counts()
-            NMS.NMS_COPIES.reset_counts()
+            c0 = obs.counters()
             t0 = time.perf_counter()
         outs.append(step(t))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = SC.SPAN_KERNELS.main_launches / POD_TIMED
-    copies = NMS.NMS_COPIES.copies / POD_TIMED
+    moved = obs.since(c0)
+    launches = moved["span_conv.launches"] / POD_TIMED
+    copies = moved["nms.copies"] / POD_TIMED
     gates = [[step_gates(t, W, pod_slot(o, i)) for i in range(max(S, 1))]
              for t, o in enumerate(outs[POD_WARM:], POD_WARM)]
     bad = [g for row in gates for g in row if g["dropped"]]

@@ -8,9 +8,12 @@ Every scan of each sequence gets mos/.label + confidence/.npy + bbox/.npy
 artifacts (utils/io.py); the growing-window warm-up covers the first N-1
 scans. ``--pod [--slots_per_device S]`` streams the sequences in
 lockstep, S on each device (every visible card unless ``--device`` names
-one), and writes the same artifacts. ``--ckpt`` is a port checkpoint
+one), and writes the same artifacts. ``--trace PATH`` records the
+port's spans and counters (``obs``) over the run and writes their
+summary there as JSON. ``--ckpt`` is a port checkpoint
 (utils/checkpoint.py). The run is on the card unless ``--device`` names
-another device; this flag is the only one the JAX CLI lacks. Without a checkpoint the weights are random, from
+another device; this flag and ``--trace`` are the only ones the JAX CLI
+lacks. Without a checkpoint the weights are random, from
 ``utils.params.init_params(cfg, numpy.random.default_rng(seed))``: the JAX
 CLI draws its own with ``jax.random.PRNGKey(seed)``, which the port cannot
 reproduce, so parity between the two always goes through a checkpoint of
@@ -21,11 +24,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 
 import numpy as np
 
+from .. import obs
 from ..config import Config
 from ..data.kitti import lidar_poses_from_files, load_files, read_point_cloud
 from ..data.loader import prefetch_map
@@ -72,6 +77,11 @@ def parse_args(argv=None):
     )
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: the card)")
+    p.add_argument(
+        "--trace", type=str, default=None, metavar="PATH",
+        help="record the port's spans and counters (insmos_tpu_torch.obs) "
+        "over the run and write their summary to PATH as JSON",
+    )
     return p.parse_args(argv)
 
 
@@ -208,7 +218,15 @@ def run(args) -> dict:
 
 
 def main(argv=None):
-    return run(parse_args(argv))
+    args = parse_args(argv)
+    if args.trace is None:
+        return run(args)
+    obs.reset()
+    with obs.tracing():
+        stats = run(args)
+    with open(args.trace, "w") as fh:
+        json.dump(obs.summary(), fh, indent=1)
+    return stats
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import obs
 from ..sparse.tensor import SparseTensor
 from ..sparse.voxelize import devoxelize, voxelize_points
 from .bev_backbone import BEVBackbone, bev_backbone_forward
@@ -56,15 +57,17 @@ class InsMOSModel(nn.Module):
         arguments select the fixed-frame incremental stem (see
         minkunet4d.motionnet_forward); the step's new "stem_cache" and
         "win" are then returned too."""
-        return self._motion(sample, stem_cache=stem_cache,
-                            cache_shift=cache_shift, win_cache=win_cache,
-                            emit_cache=emit_cache)
+        with obs.span("motion"):
+            return self._motion(sample, stem_cache=stem_cache,
+                                cache_shift=cache_shift, win_cache=win_cache,
+                                emit_cache=emit_cache)
 
     @torch.inference_mode()
     def forward_tail(self, inter: dict) -> dict:
         """UNet + detection + fusion + devoxelize, with the overflow
         counters of the reference."""
-        return self._tail(inter)
+        with obs.span("tail"):
+            return self._tail(inter)
 
     def _motion(self, sample: dict, *, train: bool = False, stem_cache=None,
                 cache_shift=None, win_cache=None,
@@ -82,12 +85,13 @@ class InsMOSModel(nn.Module):
             emit_cache=emit_cache)
         current = points[W - 1]
         cur_valid = point_valid[W - 1]
-        vox, p2v = voxelize_points(
-            torch.cat([current, motion_cur], dim=-1), cur_valid,
-            cfg.data.point_cloud_range, cfg.data.voxel_size,
-            cfg.data.grid_size, cfg.model.unet_capacities[0],
-            cfg.model.max_points_per_voxel,
-        )
+        with obs.span("voxelize"):
+            vox, p2v = voxelize_points(
+                torch.cat([current, motion_cur], dim=-1), cur_valid,
+                cfg.data.point_cloud_range, cfg.data.voxel_size,
+                cfg.data.grid_size, cfg.model.unet_capacities[0],
+                cfg.model.max_points_per_voxel,
+            )
         inter = {
             "vox": vox, "p2v": p2v, "motion_cur": motion_cur,
             "current": current, "cur_valid": cur_valid,
@@ -117,12 +121,13 @@ class InsMOSModel(nn.Module):
         det = {}
 
         def boxes_fn(bev):
-            feat = bev_backbone_forward(self.bev, cfg, bev, dtype, train)
-            cls_map, box_map = center_head_forward(self.head, feat, dtype)
-            # the fusion sees detached boxes (the reference clones and
-            # detaches them); gradients reach the head through the maps
-            boxes8, scores, labels, mask = decode_and_nms(
-                cfg, cls_map.detach(), box_map.detach())
+            with obs.span("detect"):
+                feat = bev_backbone_forward(self.bev, cfg, bev, dtype, train)
+                cls_map, box_map = center_head_forward(self.head, feat, dtype)
+                # the fusion sees detached boxes (the reference clones and
+                # detaches them); gradients reach the head through the maps
+                boxes8, scores, labels, mask = decode_and_nms(
+                    cfg, cls_map.detach(), box_map.detach())
             det.update(cls_map=cls_map, box_map=box_map, boxes=boxes8,
                        scores=scores, labels=labels, box_mask=mask)
             return boxes8, mask

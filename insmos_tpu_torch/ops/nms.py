@@ -16,7 +16,9 @@ matrix and circle test, and one fixed-capacity pair list
 ONE device-to-host copy carries all slots' counts and overlapping pairs,
 the host scans each slot, and one host-to-device copy brings the keepers
 back. Only a pair list above its capacity (``PAIRS_PER_BOX`` pairs a box)
-costs a second copy, for the exact full list.
+costs a second copy, for the exact full list. The copies and those
+overflows, the rows tested (slots x K), the live candidates among them and
+the boxes kept are counted in :mod:`insmos_tpu_torch.obs` (``nms.*``).
 
 ``greedy_nms`` is the op ``insmos::greedy_nms`` (a ``torch.library`` custom
 op) on one slot; its batching rule runs :func:`greedy_nms_slots` once over
@@ -28,27 +30,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from .iou3d import iou_bev_pairs
 
 _MARGIN = 1e-2  # metres added to the bounding-circle test
 PAIRS_PER_BOX = 24  # pair-list capacity a candidate box, before a second copy
-
-
-class NmsCopies:
-    """Device-to-host copies made by the NMS (``copies``) and the calls
-    whose pair list outgrew its capacity (``overflows``, each one more
-    copy)."""
-
-    def __init__(self):
-        self.copies = 0
-        self.overflows = 0
-
-    def reset_counts(self):
-        self.copies = 0
-        self.overflows = 0
-
-
-NMS_COPIES = NmsCopies()
 
 
 def _greedy_host(n: int, ij: np.ndarray, max_out: int) -> list[int]:
@@ -73,6 +59,11 @@ def greedy_nms_slots(boxes, scores, valid, iou_thresh: float, max_out: int):
     (S, max_out) int32 score-descending, keep_mask (S, max_out) bool), each
     slot as :func:`greedy_nms` on its own rows, with one device-to-host
     copy for all slots."""
+    with obs.span("nms"):
+        return _greedy_nms_slots(boxes, scores, valid, iou_thresh, max_out)
+
+
+def _greedy_nms_slots(boxes, scores, valid, iou_thresh, max_out):
     dev = boxes.device
     S, K = scores.shape
     ms = torch.where(valid, scores.float(), torch.full_like(
@@ -99,15 +90,19 @@ def greedy_nms_slots(boxes, scores, valid, iou_thresh: float, max_out: int):
         return iou_bev_pairs(b[s, i], b[s, j]) > iou_thresh
 
     over = overlapping(idx.clamp(min=0)) & (idx >= 0)
-    host = torch.cat([n, flat.sum().reshape(1), torch.where(over, idx, -1)]
-                     ).cpu().numpy()
-    NMS_COPIES.copies += 1
+    with obs.span("sync.nms"):
+        host = torch.cat([n, flat.sum().reshape(1),
+                          torch.where(over, idx, -1)]).cpu().numpy()
+    obs.count("nms.copies")
     n_h, total, idx_h = host[:S], int(host[S]), host[S + 1:]
+    obs.count("nms.rows", S * K)
+    obs.count("nms.live", int(n_h.sum()))
     if total > cap:  # the list outgrew its capacity: the exact full list
-        idx = torch.nonzero(flat)[:, 0]
-        idx_h = torch.where(overlapping(idx), idx, -1).cpu().numpy()
-        NMS_COPIES.copies += 1
-        NMS_COPIES.overflows += 1
+        with obs.span("sync.nms"):
+            idx = torch.nonzero(flat)[:, 0]
+            idx_h = torch.where(overlapping(idx), idx, -1).cpu().numpy()
+        obs.count("nms.copies")
+        obs.count("nms.pair_overflows")
     idx_h = idx_h[idx_h >= 0]
     slot = idx_h // (K * K)
     ij = np.stack([(idx_h // K) % K, idx_h % K], axis=1)
@@ -116,6 +111,7 @@ def greedy_nms_slots(boxes, scores, valid, iou_thresh: float, max_out: int):
     for s in range(S):
         k = _greedy_host(int(n_h[s]), ij[bounds[s]:bounds[s + 1]], max_out)
         kept[s, :len(k)] = k
+    obs.count("nms.kept", int((kept >= 0).sum()))
     kept = torch.from_numpy(kept).to(dev)
     keep_mask = kept >= 0
     keep_idx = torch.where(keep_mask, order.gather(1, kept.clamp(min=0)), 0)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree
 
-from . import setup_device
+from . import obs, setup_device
 from .nn.model import InsMOSModel
 from .sparse.tensor import KEY_SENTINEL
 
@@ -178,15 +178,16 @@ class InferencePipeline:
         fresh caches."""
         dev = self.device
         buf = self._buf
-        pts, num, mask = self._roll_window(
-            buf, torch.from_numpy(padded).to(dev, non_blocking=True), n_raw,
-            torch.from_numpy(tf).to(dev, non_blocking=True))
-        new_buf = {"points": pts, "num_points": num, "scan_mask": mask}
-        kw = {}
-        if "stem_cache" in buf:
-            kw = dict(emit_cache=True) if full else dict(
-                stem_cache=buf["stem_cache"], win_cache=buf["win"],
-                cache_shift=torch.from_numpy(shift).to(dev))
+        with obs.span("push"):
+            pts, num, mask = self._roll_window(
+                buf, torch.from_numpy(padded).to(dev, non_blocking=True),
+                n_raw, torch.from_numpy(tf).to(dev, non_blocking=True))
+            new_buf = {"points": pts, "num_points": num, "scan_mask": mask}
+            kw = {}
+            if "stem_cache" in buf:
+                kw = dict(emit_cache=True) if full else dict(
+                    stem_cache=buf["stem_cache"], win_cache=buf["win"],
+                    cache_shift=torch.from_numpy(shift).to(dev))
         inter = self.model.forward_motion(
             {"points": pts, "num_points": num, "scan_mask": mask}, **kw)
         if "stem_cache" in buf:
@@ -208,29 +209,31 @@ class InferencePipeline:
         an integer k runs the incremental step with the snapped transform
         and a cache shift of -k; any other transform runs the full-stem
         recovery step (counted in ``n_full_steps``)."""
-        if self._buf is None:
-            self.reset()
-        padded, n_raw = self._pad(scan)
-        tf = np.eye(4, dtype=np.float32) if tf is None else \
-            np.asarray(tf, np.float32)
-        if "stem_cache" not in self._buf:
-            return self._step(padded, n_raw, tf)
-        snapped = voxel_translation(tf, self.cfg.data.voxel_size[0])
-        if snapped is None:
-            self.n_full_steps += 1
-            return self._step(padded, n_raw, tf, full=True)
-        return self._step(padded, n_raw, *snapped)
+        with obs.step(1):
+            obs.count("pipeline.steps")
+            obs.count("pipeline.scans")
+            with obs.span("push"):
+                if self._buf is None:
+                    self.reset()
+                padded, n_raw = self._pad(scan)
+                tf = np.eye(4, dtype=np.float32) if tf is None else \
+                    np.asarray(tf, np.float32)
+                args, full = (padded, n_raw, tf), False
+                if "stem_cache" in self._buf:
+                    snapped = voxel_translation(tf,
+                                                self.cfg.data.voxel_size[0])
+                    if snapped is None:
+                        self.n_full_steps += 1
+                        full = True
+                    else:
+                        args = (padded, n_raw, *snapped)
+            return self._step(*args, full=full)
 
     @staticmethod
     def fetch(out: dict, n_raw: int) -> dict[str, np.ndarray]:
         """Device outputs -> trimmed host arrays."""
-        kept = out["box_mask"].cpu().numpy().astype(bool)
-        return {
-            "point_logits": out["point_logits"][:n_raw].cpu().numpy(),
-            "boxes": out["boxes"].cpu().numpy()[kept][:, :7],
-            "scores": out["scores"].cpu().numpy()[kept],
-            "labels": out["labels"].cpu().numpy()[kept],
-        }
+        with obs.span("fetch"):
+            return _host_outputs(out, n_raw)
 
     # --------------------------------------------------- window interface
     def infer_window(self, scans: list[np.ndarray]) -> dict[str, np.ndarray]:
@@ -259,6 +262,17 @@ class InferencePipeline:
             prev = (out, len(scan))
         if prev is not None:
             yield self.fetch(*prev)
+
+
+def _host_outputs(out: dict, n_raw: int) -> dict[str, np.ndarray]:
+    with obs.span("sync.fetch"):
+        mask = out["box_mask"].cpu().numpy()
+        logits = out["point_logits"][:n_raw].cpu().numpy()
+        boxes, scores, labels = (out[k].cpu().numpy()
+                                 for k in ("boxes", "scores", "labels"))
+    kept = mask.astype(bool)
+    return {"point_logits": logits, "boxes": boxes[kept][:, :7],
+            "scores": scores[kept], "labels": labels[kept]}
 
 
 OUT_KEYS = ("point_logits", "boxes", "scores", "labels", "box_mask",
@@ -351,8 +365,9 @@ class PodInferencePipeline:
             out = model.forward_tail(inter)
             return {k: out[k] for k in OUT_KEYS}
 
-        args = [torch.from_numpy(a).to(dev, non_blocking=True)
-                for a in (padded, ns, tfs, shifts, active)]
+        with obs.span("push"):
+            args = [torch.from_numpy(a).to(dev, non_blocking=True)
+                    for a in (padded, ns, tfs, shifts, active)]
         with no_vmap_fallback():
             self._buf[j], inter = torch.func.vmap(motion)(self._buf[j], *args)
             out = torch.func.vmap(tail)(inter)
@@ -370,6 +385,23 @@ class PodInferencePipeline:
         (``overflow`` a dict of (S, ...) counters); trim one slot's with
         :meth:`fetch`. An idle slot's window is left untouched and its rows
         are zeros with ``box_mask`` all False, which no caller reads."""
+        with obs.step(self.n_slots):
+            with obs.span("push"):
+                arrays = self._host_inputs(scans, tfs)
+                if self._buf is None:
+                    self.reset()
+            obs.count("pipeline.steps")
+            obs.count("pipeline.scans", int(arrays[-1].sum()))
+            D = self.slots_per_device
+            outs = [self._device_step(j, *(a[j * D:(j + 1) * D]
+                                           for a in arrays))
+                    for j in range(len(self.devices))]
+            return _pytree.tree_map(
+                lambda *xs: torch.cat([x.to(self.device) for x in xs]), *outs)
+
+    def _host_inputs(self, scans, tfs):
+        """The step's host arrays, one row a slot: (padded scans, counts,
+        transforms, cache shifts, active)."""
         if len(scans) != self.n_slots:
             raise ValueError(f"{len(scans)} scans for {self.n_slots} slots")
         if all(scan is None for scan in scans):
@@ -401,17 +433,11 @@ class PodInferencePipeline:
                         "feed fixed_frame_transform'd scans in the "
                         "incremental pod mode")
                 tfa[i], shifts[i] = snapped
-        if self._buf is None:
-            self.reset()
-        D = self.slots_per_device
-        outs = [self._device_step(j, *(a[j * D:(j + 1) * D] for a in (
-            padded, ns, tfa, shifts, active)))
-            for j in range(len(self.devices))]
-        return _pytree.tree_map(
-            lambda *xs: torch.cat([x.to(self.device) for x in xs]), *outs)
+        return padded, ns, tfa, shifts, active
 
     @staticmethod
     def fetch(out: dict, i: int, n_raw: int) -> dict[str, np.ndarray]:
         """Slot ``i``'s outputs -> trimmed host arrays."""
-        return InferencePipeline.fetch(
-            {k: out[k][i] for k in OUT_KEYS if k != "overflow"}, n_raw)
+        with obs.span("fetch"):
+            return _host_outputs(
+                {k: out[k][i] for k in OUT_KEYS if k != "overflow"}, n_raw)

@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from .. import obs
 from ..kernels import bound
 from .slab import INT32_MAX, Slab, _compact_by_sort, _groups_yz, t_band
 from .tensor import KEY_SENTINEL
@@ -221,6 +222,11 @@ def make_span_plans(x_keys, requests) -> list:
 
     requests: dicts with out_coords, out_valid, kernel3, in_dims and the
     optional stride3, pad3, span, bs, slots, gwin, pairs."""
+    with obs.span("plan"):
+        return _make_span_plans(x_keys, requests)
+
+
+def _make_span_plans(x_keys, requests) -> list:
     Vin = x_keys.shape[0]
     preps = []
     for r in requests:
@@ -254,12 +260,13 @@ def make_span_plan(x_keys, out_coords, out_valid, kernel3, stride3=(1, 1, 1),
                    pairs: int | None = None, exact_stats: bool = False):
     """One plan (see the module docstring). ``exact_stats=True`` replaces
     n_overflow by an exact per-row count of uncovered window rows (tools)."""
-    firsts, lasts_kx, ctx = _plan_ctx(
-        out_coords, out_valid, kernel3, stride3, pad3, in_dims, span, bs,
-        slots, gwin, pairs, x_keys.shape[0],
-    )
-    pos2 = _bisect(x_keys, torch.stack([firsts, lasts_kx]))
-    return _plan_finish(x_keys, pos2, ctx, exact_stats=exact_stats)
+    with obs.span("plan"):
+        firsts, lasts_kx, ctx = _plan_ctx(
+            out_coords, out_valid, kernel3, stride3, pad3, in_dims, span, bs,
+            slots, gwin, pairs, x_keys.shape[0],
+        )
+        pos2 = _bisect(x_keys, torch.stack([firsts, lasts_kx]))
+        return _plan_finish(x_keys, pos2, ctx, exact_stats=exact_stats)
 
 
 def _plan_finish(x_keys, pos2, ctx, exact_stats: bool = False) -> SpanPlan:
@@ -620,24 +627,19 @@ def span_conv_work(x_keys, feats, wg, out_coords, out_valid,
 
 # ----------------------------------------------------------------- kernel
 class SpanConvKernels:
-    """ctypes binding of csrc/span_conv.cu with its launch counters.
+    """ctypes binding of csrc/span_conv.cu.
 
     One launch replaces both TPU kernels, for one stream or for all the
-    slots of a pod step: ``main_launches`` counts the launches (each runs
-    the main windows, span_conv.py::_kernel) and ``slot_launches`` those
+    slots of a pod step. The counter ``span_conv.launches``
+    (:mod:`insmos_tpu_torch.obs`) counts the launches (each runs the main
+    windows, span_conv.py::_kernel) and ``span_conv.slot_launches`` those
     that also ran coverage slots (the plan has slots:
     span_conv.py::_gw_kernel). Both move only where a kernel is
     launched, whichever of the two (bf16 on the tensor cores, float32 on
     the CUDA cores) the operands' type selects."""
 
     def __init__(self):
-        self.main_launches = 0
-        self.slot_launches = 0
         self._lib = None
-
-    def reset_counts(self):
-        self.main_launches = 0
-        self.slot_launches = 0
 
     def lib(self):
         if self._lib is None:
@@ -784,9 +786,9 @@ def span_conv_core_cuda(x_keys, feats, wg, out_coords, out_valid,
                                 ctypes.addressof(strides), stream)
     if err:
         raise RuntimeError(f"span_conv launch failed: CUDA error {err}")
-    SPAN_KERNELS.main_launches += 1
+    obs.count("span_conv.launches")
     if JS:
-        SPAN_KERNELS.slot_launches += 1
+        obs.count("span_conv.slot_launches")
     return out if batched else out[0]
 
 

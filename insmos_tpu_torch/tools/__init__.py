@@ -12,7 +12,6 @@ helpers they and ``chip_smoke.py`` share.
     python -m insmos_tpu_torch.tools.micro_lanegather2
     python -m insmos_tpu_torch.tools.probe_tala
     python -m insmos_tpu_torch.tools.probe_pallas_rowconv
-    python -m insmos_tpu_torch.tools.profile_step
     python -m insmos_tpu_torch.tools.measure_train_step [--profile]
 
 Every time they print is a reading of the card named on their first line.

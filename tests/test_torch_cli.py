@@ -42,6 +42,7 @@ from insmos_tpu.utils import checkpoint as jax_checkpoint
 from insmos_tpu.utils import convert as jax_convert
 from insmos_tpu.utils import io as jax_io
 from insmos_tpu_torch import config as port_config
+from insmos_tpu_torch import obs
 from insmos_tpu_torch import constants as port_constants
 from insmos_tpu_torch.cli import evaluate_mos, predict_mos, refine, visualize
 from insmos_tpu_torch.data import kitti, loader, synthetic
@@ -460,3 +461,24 @@ def test_predict_mos_pod_and_default_guard(cli_setup, tmp_path):
     with pytest.raises(SystemExit, match="RANDOM weights"):
         predict_mos.run(predict_mos.parse_args(base))
     assert predict_mos.parse_args([]).device == "cuda"
+
+
+def test_predict_mos_trace(cli_setup, tmp_path):
+    """--trace PATH records the run's spans and counters and writes their
+    summary: a step, an NMS copy and a fetch a scan; tracing is off after."""
+    path = str(tmp_path / "trace.json")
+    stats = predict_mos.main([
+        "--data_path", cli_setup["root"], "--out", str(tmp_path / "out"),
+        "--device", "cpu", "--ckpt", cli_setup["pckpt"], "--sequences", "8",
+        "--trace", path])
+    assert stats["scans"] == N_SCANS and not obs.on()
+    with open(path) as fh:
+        summary = json.load(fh)
+    spans, counters = summary["spans"], summary["counters"]
+    for name in ("step", "fetch", "nms"):
+        assert spans[name]["count"] == N_SCANS, name
+    for name in ("push", "motion", "plan", "voxelize", "tail", "detect",
+                 "sync.nms", "sync.fetch"):
+        assert 0 <= spans[name]["self_ms"] <= spans[name]["incl_ms"], name
+    assert counters["pipeline.scans"] == counters["nms.copies"] == N_SCANS
+    assert summary["records"] == N_SCANS

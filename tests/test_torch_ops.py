@@ -18,6 +18,7 @@ from insmos_tpu.ops import points_in_boxes as jpib
 from insmos_tpu.sparse import bev as jbev
 from insmos_tpu.sparse import voxelize as jvox
 from insmos_tpu.sparse.tensor import SparseTensor as JSparse
+from insmos_tpu_torch import obs
 from insmos_tpu_torch.ops import box_utils as tbu
 from insmos_tpu_torch.ops import iou3d as tiou
 from insmos_tpu_torch.ops import nms as tnms
@@ -148,20 +149,22 @@ def test_greedy_nms_deployment_regime(dense):
         for b, s, v in slots]
     assert all(3 <= m.sum() < v.sum() for (_, m), (_, _, v) in zip(ref,
                                                                      slots))
-    tnms.NMS_COPIES.reset_counts()
+    before = obs.counters()
     b, s, v = (torch.from_numpy(x) for x in slots[0])
     ti, tm = tnms.greedy_nms(b, s, v, 0.01, 500)
     np.testing.assert_array_equal(ti.numpy(), ref[0][0])
     np.testing.assert_array_equal(tm.numpy(), ref[0][1])
-    assert (tnms.NMS_COPIES.copies, tnms.NMS_COPIES.overflows) == (
+    got = obs.since(before)
+    assert (got["nms.copies"], got["nms.pair_overflows"]) == (
         (2, 1) if dense else (1, 0))
-    tnms.NMS_COPIES.reset_counts()
+    before = obs.counters()
     bs, ss, vs = (torch.from_numpy(np.stack(x)) for x in zip(*slots))
     ti, tm = tnms.greedy_nms_slots(bs, ss, vs, 0.01, 500)
     for i, (ri, rm) in enumerate(ref):
         np.testing.assert_array_equal(ti[i].numpy(), ri)
         np.testing.assert_array_equal(tm[i].numpy(), rm)
-    assert (tnms.NMS_COPIES.copies, tnms.NMS_COPIES.overflows) == (
+    got = obs.since(before)
+    assert (got["nms.copies"], got["nms.pair_overflows"]) == (
         (2, 1) if dense else (1, 0))
 
 

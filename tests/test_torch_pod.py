@@ -24,9 +24,9 @@ from jax.sharding import Mesh
 from torch.utils import _pytree
 
 from insmos_tpu.pipeline import PodInferencePipeline as JaxPod
+from insmos_tpu_torch import obs
 from insmos_tpu_torch.cli import predict_mos
 from insmos_tpu_torch.data.synthetic import write_synthetic_sequence
-from insmos_tpu_torch.ops.nms import NMS_COPIES
 from insmos_tpu_torch.pipeline import (InferencePipeline, PodInferencePipeline,
                                        fixed_frame_transform)
 from insmos_tpu_torch.utils.checkpoint import save_checkpoint_from_trees
@@ -117,9 +117,9 @@ def pod_run(request):
         scans, tfs = _inputs(streams, row)
         if t == IDLE[0]:
             idle_before = _bufs(pod, IDLE[1])
-        NMS_COPIES.reset_counts()
+        before = obs.counters()
         got.append(pod.push_scans(scans, tfs))
-        copies.append(NMS_COPIES.copies)
+        copies.append(obs.since(before)["nms.copies"])
         if t == IDLE[0]:
             idle_after = _bufs(pod, IDLE[1])
         ref.append(jax.tree_util.tree_map(np.array,

@@ -22,6 +22,7 @@ import pytest
 import torch
 from torch.utils import _pytree
 
+from insmos_tpu_torch import obs
 from insmos_tpu_torch.ops import nms as N
 from insmos_tpu_torch.pipeline import no_vmap_fallback
 from insmos_tpu_torch.sparse import span_conv as SC
@@ -82,10 +83,10 @@ def test_batched_kernel_equals_single_launches(shape, dtype, cuda):
     keys, feats, coords, valid = (torch.stack([s[i] for s in slots])
                                   for i in range(4))
     plan = _stacked_plan([s[4] for s in slots])
-    before = SC.SPAN_KERNELS.main_launches
+    before = obs.counters()
     got = SC.span_conv_core_cuda(keys, feats, wg, coords, valid, plan)
     torch.cuda.synchronize()
-    assert SC.SPAN_KERNELS.main_launches == before + 1
+    assert obs.since(before)["span_conv.launches"] == 1
     assert got.shape == (S, coords.shape[1], wg.shape[2])
     for s, (k, f, c, v, p) in enumerate(slots):
         one = SC.span_conv_core_cuda(k, f, wg, c, v, p)
@@ -111,11 +112,11 @@ def test_vmapped_op_is_one_launch(dtype, cuda):
         torch.stack([getattr(s[4], a) for s in slots])
         for a in ("sb", "emp", "gs")]
     gp = slots[0][4].gp
-    before = SC.SPAN_KERNELS.main_launches
+    before = obs.counters()
     with torch.inference_mode(), no_vmap_fallback():
         got = torch.func.vmap(conv, in_dims=(0,) * 7 + (None,))(*args, gp)
     torch.cuda.synchronize()
-    assert SC.SPAN_KERNELS.main_launches == before + 1
+    assert obs.since(before)["span_conv.launches"] == 1
     for s in range(S):
         one = conv(*(a[s] for a in args), gp)
         assert torch.equal(got[s], one), s
@@ -140,11 +141,11 @@ def test_batched_nms_matches_per_slot(cuda):
     scores = np.round(rng.random((S, K)), 2).astype(np.float32)
     valid = np.stack([rng.random(K) < p for p in (0.9, 0.0, 0.3)])
     args = [torch.from_numpy(a).to(cuda) for a in (boxes, scores, valid)]
-    N.NMS_COPIES.reset_counts()
+    before = obs.counters()
     with torch.inference_mode(), no_vmap_fallback():
         got = torch.func.vmap(N.greedy_nms, in_dims=(0, 0, 0, None, None))(
             *args, 0.01, max_out)
-    assert N.NMS_COPIES.copies == 1
+    assert obs.since(before)["nms.copies"] == 1
     for s in range(S):
         for dev in (cuda, torch.device("cpu")):
             one = N.greedy_nms(*(a[s].to(dev) for a in args), 0.01, max_out)

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from insmos_tpu_torch import obs
 from insmos_tpu_torch.sparse import slab as S
 from insmos_tpu_torch.sparse import span_conv as SC
 
@@ -65,6 +66,12 @@ CASES = [
     ("narrow_overflow", (48, 40, 12), 3, (3, 3, 3, 3), "subm", 32,
      (8, 2, 8, 64)),
 ]
+
+
+def _launches():
+    c = obs.counters()
+    return (c.get("span_conv.launches", 0),
+            c.get("span_conv.slot_launches", 0))
 
 
 def _run_case(case, dev, dtype, seed=0):
@@ -115,12 +122,12 @@ def _run_case(case, dev, dtype, seed=0):
         feats = x.mask_feats()
         T_out = T
     args = (x.keys, feats, weights, parts, out.coords, out.valid, plan, T_out)
-    before = (SC.SPAN_KERNELS.main_launches, SC.SPAN_KERNELS.slot_launches)
+    before = _launches()
     got = SC.span_conv_parts(*args)
     if got.is_cuda:
         torch.cuda.synchronize()
     ref = SC.span_conv_parts_plain(*args)
-    after = (SC.SPAN_KERNELS.main_launches, SC.SPAN_KERNELS.slot_launches)
+    after = _launches()
     return got, ref, plan, before, after
 
 
@@ -178,10 +185,10 @@ def test_kernel_main_path_widths(shape, dtype, cuda):
     args = _wide_case(*shape, cuda, dtype)
     plan = args[-1]
     assert int(plan.n_overflow) > 0 and int((plan.gs[1] >= 0).sum()) > 0
-    before = SC.SPAN_KERNELS.main_launches
+    before = obs.counters()
     got = SC.span_conv_core_cuda(*args)
     torch.cuda.synchronize()
-    assert SC.SPAN_KERNELS.main_launches == before + 1
+    assert obs.since(before)["span_conv.launches"] == 1
     ref = SC.span_conv_core_plain(*args)
     assert got.shape == ref.shape and got.dtype == torch.float32
     scale = max(1.0, float(ref.abs().max()))

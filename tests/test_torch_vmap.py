@@ -18,6 +18,7 @@ import pytest
 import torch
 from torch.utils import _pytree
 
+from insmos_tpu_torch import obs
 from insmos_tpu_torch.ops import nms as N
 from insmos_tpu_torch.pipeline import PodInferencePipeline, no_vmap_fallback
 from insmos_tpu_torch.sparse import slab as SL
@@ -175,11 +176,11 @@ def test_nms_op_batching_rule(S):
     scores = np.round(rng.random((S, K)), 2).astype(np.float32)
     valid = np.stack([rng.random(K) < p for p in (0.9, 0.0, 0.3)[:S]])
     args = [torch.from_numpy(a) for a in (boxes, scores, valid)]
-    N.NMS_COPIES.reset_counts()
+    before = obs.counters()
     with torch.inference_mode(), no_vmap_fallback():
         torch.func.vmap(lambda b, s, v: N.greedy_nms(b, s, v, 0.01, max_out)
                         )(*args)
-    assert N.NMS_COPIES.copies == 1
+    assert obs.since(before)["nms.copies"] == 1
     keep = _assert_equal(
         lambda b, s, v: N.greedy_nms(b, s, v, 0.01, max_out), *args)
     counts = keep[1].sum(dim=1).tolist()
