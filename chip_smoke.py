@@ -10,7 +10,10 @@ full-config streaming step and prints each shape class's kernel time
 beside its bound (SC.span_conv_work), streams 12 scans of the HDL-64E
 raycast fixture through InferencePipeline.push_scan at the full default
 Config (ref-exact mode: full stem every step, window re-rotated per step),
-checks the outputs and the overflow gates, and prints a first step time.
+checks the outputs and the overflow gates, and prints a first step time;
+then streams them again with every span plan, replayed from its CUDA
+graph, held against the eager plan field for field, and prints the
+graphs captured and replayed.
 The incremental phase does the same for the fixed-frame incremental mode
 (the JAX package's bench headline: the fixed-frame stream, the window's
 site set and stem outputs carried across steps, the stem at T=1 on the new
@@ -211,6 +214,42 @@ class Recorder:
 
     def __exit__(self, *exc):
         SC.span_conv_parts = self._orig
+
+
+class PlanCheck:
+    """Holds every span plan that a CUDA graph replays
+    (``SC.PlanGraphs.replay``) against the eager builder on the same
+    inputs, field for field; ``calls`` counts the replays held and
+    ``checked`` the plans they built."""
+
+    def __enter__(self):
+        self.calls = self.checked = 0
+        self._orig = orig = SC.PlanGraphs.replay
+
+        def held(graphs, x_keys, requests):
+            got = orig(graphs, x_keys, requests)
+            self.calls += 1
+            for g, w in zip(got, SC._make_span_plans(x_keys, requests),
+                            strict=True):
+                self._same(g, w)
+            return got
+
+        SC.PlanGraphs.replay = held
+        return self
+
+    def __exit__(self, *exc):
+        SC.PlanGraphs.replay = self._orig
+
+    def _same(self, got, want):
+        for f in dataclasses.fields(SC.SpanPlan):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            same = (a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a, b)) if isinstance(a, torch.Tensor) \
+                else a == b
+            if not same:
+                raise AssertionError(f"graphed plan {got.kernel3} differs "
+                                     f"from the eager one in {f.name}")
+        self.checked += 1
 
 
 def shape_class(args) -> str:
@@ -501,6 +540,23 @@ def phase_main(cfg, model, scans, tfs):
           f"{warm or 'none'}; voxelizer_out_of_range "
           f"{[g['voxelizer_out_of_range'] for g in gates]}, kept boxes "
           f"{[g['boxes'] for g in gates]}, kernel launches {launches}")
+    moved = obs.since(c0)
+    plans = {k: moved["plan." + k] for k in ("builds", "replays", "captures")}
+    if not (plans["replays"] == plans["builds"] > 0
+            and plans["captures"] == len(pipe.plan_graphs)):
+        raise AssertionError(f"plan graphs: {plans}, "
+                             f"{len(pipe.plan_graphs)} graphs")
+    # the same stream again, every graphed plan held against the eager one
+    c1 = obs.counters()
+    with PlanCheck() as check:
+        stream_gated(InferencePipeline(cfg, model, "cuda"), scans, tfs)
+    if check.calls != obs.since(c1)["plan.builds"]:
+        raise AssertionError(f"{check.calls} graphed plan builds of "
+                             f"{obs.since(c1)['plan.builds']}")
+    print(f"plan graphs: {plans['captures']} captured, {plans['replays']} "
+          f"replays of {plans['builds']} plan builds over {len(scans)} "
+          f"steps; a second stream's {check.checked} graphed plans equal "
+          f"the eager ones field for field")
     return step_ms, gates, launches, full
 
 

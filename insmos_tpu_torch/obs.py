@@ -8,6 +8,9 @@ Counters (:func:`count`) are integer adds under a name, always on:
   tests (slots x K), the live candidates among them, the boxes kept;
 - ``span_conv.launches``, ``span_conv.slot_launches``: span-conv kernel
   launches, and those that also ran coverage slots (sparse/span_conv.py);
+- ``plan.builds``, ``plan.replays``, ``plan.captures``: calls of the span
+  plan builders on any path, those that replayed a CUDA graph, and the
+  graphs captured (sparse/span_conv.py, ``PlanGraphs``);
 - ``pipeline.steps``, ``pipeline.scans``: pipeline steps and the scans
   they took (pipeline.py);
 - ``host_syncs``: operations that blocked the host until the card's stream

@@ -18,7 +18,10 @@ scans and runs the model. Two modes, as in the reference:
   full-stem recovery step instead, which rebuilds both caches and is
   counted in ``n_full_steps``.
 
-The pipeline runs on the card unless ``device`` names the CPU.
+The pipeline runs on the card unless ``device`` names the CPU. On the
+card a step's span plans replay CUDA graphs captured at their first step
+(``sparse.span_conv.PlanGraphs``, one set a pipeline); the pod's vmapped
+plans run eagerly.
 
 :class:`PodInferencePipeline` streams S sequences in lockstep, the slots
 spread over the devices given (every visible card by default): on each
@@ -38,6 +41,7 @@ from torch.utils import _pytree
 
 from . import obs, setup_device
 from .nn.model import InsMOSModel
+from .sparse.span_conv import PlanGraphs
 from .sparse.tensor import KEY_SENTINEL
 
 
@@ -139,6 +143,8 @@ class InferencePipeline:
         self.model = model.to(self.device).eval()
         self._buf = None
         self.n_full_steps = 0  # incremental mode: recovery steps taken
+        # the step's span plans replay CUDA graphs on the card
+        self.plan_graphs = PlanGraphs()
 
     # ------------------------------------------------------------- state
     def reset(self):
@@ -227,7 +233,8 @@ class InferencePipeline:
                         full = True
                     else:
                         args = (padded, n_raw, *snapped)
-            return self._step(*args, full=full)
+            with self.plan_graphs.step():
+                return self._step(*args, full=full)
 
     @staticmethod
     def fetch(out: dict, n_raw: int) -> dict[str, np.ndarray]:

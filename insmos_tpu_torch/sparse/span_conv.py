@@ -26,6 +26,8 @@ kernels a slot axis on their grid.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import math
@@ -172,6 +174,27 @@ def _pad_rows(a, n, fill):
     return torch.cat([a, pad])
 
 
+_GROUP_OFFSETS: dict = {}  # (kernel3, device) -> (ky, kz)
+
+
+def _group_offsets(kernel3, device):
+    """(ky, kz), each (G,) int64 on ``device``: the (dy, dz) offsets of the
+    kernel's groups (``_groups_yz``), uploaded once. An upload from host
+    memory at every plan would block the host, and a CUDA graph cannot
+    hold one."""
+    key = (tuple(kernel3), torch.device(device))
+    offsets = _GROUP_OFFSETS.get(key)
+    if offsets is None:
+        groups = _groups_yz(kernel3)
+        # ordinary tensors, though a plan may first run in inference mode
+        with torch.inference_mode(False):
+            offsets = tuple(torch.tensor([g[i] for g in groups],
+                                         dtype=torch.int64, device=device)
+                            for i in (0, 1))
+        _GROUP_OFFSETS[key] = offsets
+    return offsets
+
+
 def _plan_ctx(out_coords, out_valid, kernel3, stride3, pad3, in_dims, span,
               bs, slots, gwin, pairs, Vin):
     """Everything a plan needs before its main bisection. Returns (firsts,
@@ -181,8 +204,7 @@ def _plan_ctx(out_coords, out_valid, kernel3, stride3, pad3, in_dims, span,
     kx = int(kernel3[0])
     if pad3 is None:
         pad3 = tuple((k - 1) // 2 for k in kernel3)
-    groups = _groups_yz(kernel3)
-    G = len(groups)
+    G = len(_groups_yz(kernel3))
     V = out_coords.shape[0]
     NB = -(-V // bs)
     Vp = NB * bs
@@ -193,8 +215,7 @@ def _plan_ctx(out_coords, out_valid, kernel3, stride3, pad3, in_dims, span,
 
     ocoords = _pad_rows(out_coords.to(torch.int32), Vp, 0)
     ovalid = _pad_rows(out_valid.to(torch.int32), Vp, 0)
-    ky = torch.tensor([g[0] for g in groups], dtype=torch.int64, device=dev)
-    kz = torch.tensor([g[1] for g in groups], dtype=torch.int64, device=dev)
+    ky, kz = _group_offsets(kernel3, dev)
 
     X, Y, Z = in_dims
     sx, sy, sz = stride3
@@ -221,12 +242,18 @@ def make_span_plans(x_keys, requests) -> list:
     """Plans for several output site sets over one sorted key array.
 
     requests: dicts with out_coords, out_valid, kernel3, in_dims and the
-    optional stride3, pad3, span, bs, slots, gwin, pairs."""
+    optional stride3, pad3, span, bs, slots, gwin, pairs. Inside a
+    :meth:`PlanGraphs.step` on CUDA tensors the plans come from a replay
+    of the graph of this code (see :class:`PlanGraphs`)."""
     with obs.span("plan"):
+        obs.count("plan.builds")
+        graphs = _graphs_for(x_keys, requests)
+        if graphs is not None:
+            return graphs.replay(x_keys, requests)
         return _make_span_plans(x_keys, requests)
 
 
-def _make_span_plans(x_keys, requests) -> list:
+def _make_span_plans(x_keys, requests, exact_stats: bool = False) -> list:
     Vin = x_keys.shape[0]
     preps = []
     for r in requests:
@@ -250,7 +277,7 @@ def _make_span_plans(x_keys, requests) -> list:
         pos2 = torch.stack([pos[off:off + n].reshape(f.shape),
                             pos[off + n:off + 2 * n].reshape(f.shape)])
         off += 2 * n
-        plans.append(_plan_finish(x_keys, pos2, ctx))
+        plans.append(_plan_finish(x_keys, pos2, ctx, exact_stats=exact_stats))
     return plans
 
 
@@ -259,14 +286,20 @@ def make_span_plan(x_keys, out_coords, out_valid, kernel3, stride3=(1, 1, 1),
                    slots: int | None = None, gwin: int = 12,
                    pairs: int | None = None, exact_stats: bool = False):
     """One plan (see the module docstring). ``exact_stats=True`` replaces
-    n_overflow by an exact per-row count of uncovered window rows (tools)."""
+    n_overflow by an exact per-row count of uncovered window rows (tools),
+    and is always built eagerly; otherwise, inside a
+    :meth:`PlanGraphs.step` on CUDA tensors, the plan comes from a replay
+    of the graph of this code."""
     with obs.span("plan"):
-        firsts, lasts_kx, ctx = _plan_ctx(
-            out_coords, out_valid, kernel3, stride3, pad3, in_dims, span, bs,
-            slots, gwin, pairs, x_keys.shape[0],
-        )
-        pos2 = _bisect(x_keys, torch.stack([firsts, lasts_kx]))
-        return _plan_finish(x_keys, pos2, ctx, exact_stats=exact_stats)
+        obs.count("plan.builds")
+        request = dict(out_coords=out_coords, out_valid=out_valid,
+                       kernel3=kernel3, stride3=stride3, pad3=pad3,
+                       in_dims=in_dims, span=span, bs=bs, slots=slots,
+                       gwin=gwin, pairs=pairs)
+        graphs = _graphs_for(x_keys, [request])
+        if graphs is not None and not exact_stats:
+            return graphs.replay(x_keys, [request])[0]
+        return _make_span_plans(x_keys, [request], exact_stats)[0]
 
 
 def _plan_finish(x_keys, pos2, ctx, exact_stats: bool = False) -> SpanPlan:
@@ -397,12 +430,9 @@ def uncovered_rows(x_keys, out_coords, out_valid, plan: SpanPlan):
     the plan's main window nor its slots cover, so some of whose taps the
     conv leaves out (tools only; their count is
     ``make_span_plan(..., exact_stats=True).n_overflow``)."""
-    groups = _groups_yz(plan.kernel3)
     V = out_coords.shape[0]
     Vp = -(-V // plan.bs) * plan.bs
-    dev = x_keys.device
-    ky = torch.tensor([g[0] for g in groups], dtype=torch.int64, device=dev)
-    kz = torch.tensor([g[1] for g in groups], dtype=torch.int64, device=dev)
+    ky, kz = _group_offsets(plan.kernel3, x_keys.device)
     rows = _uncovered(
         x_keys, _pad_rows(out_coords.to(torch.int32), Vp, 0),
         _pad_rows(out_valid.to(torch.int32), Vp, 0), ky, kz,
@@ -448,6 +478,118 @@ def _uncovered(x_keys, ocoords, ovalid, ky, kz, kx, stride3, pad3,
     start_at = (sb.to(torch.int64) * 16)[:, blk]
     start_viol = (pos_all < start_at) & (k_at_pos < q_all + kx)
     return row_ok & ((q_all + kx > Kcov) | start_viol)
+
+
+# ------------------------------------------------------------ plan graphs
+_CURRENT_GRAPHS = None  # the PlanGraphs whose step() is open
+_PLAN_TENSORS = ("out_coords", "out_valid")  # a request's tensors
+
+
+def _plan_inputs(x_keys, requests) -> list:
+    """A plan's tensors: x_keys, then each request's out_coords and
+    out_valid."""
+    return [x_keys] + [r[k] for r in requests for k in _PLAN_TENSORS]
+
+
+def _graphs_for(x_keys, requests):
+    """The current :class:`PlanGraphs` where a plan over these inputs
+    replays from it (CUDA tensors), else None. A vmapped input under a
+    current one raises: a graph holds one stream's plan."""
+    graphs = _CURRENT_GRAPHS
+    if graphs is None:
+        return None
+    if any(torch._C._functorch.is_batchedtensor(t)
+           for t in _plan_inputs(x_keys, requests)):
+        raise ValueError("a vmapped span plan cannot replay a CUDA graph")
+    return graphs if x_keys.is_cuda else None
+
+
+class PlanGraphs:
+    """CUDA graphs of one single-stream pipeline's span plans.
+
+    A plan is integer glue with static shapes: hundreds of small kernels,
+    which eager mode launches from the host one by one. Inside
+    :meth:`step`, a plan builder given CUDA tensors (and not
+    ``exact_stats``) instead replays a graph of the eager
+    ``_make_span_plans``, captured the first time its key is seen: every
+    static argument of its requests, each input's shape and dtype, and the
+    key's occurrence within the step, so that two equal calls of one step
+    hold outputs of their own. The first call runs the builder once on a
+    side stream (lazy state, :func:`_group_offsets`), captures it, then
+    replays.
+    The plans are the outputs of the same kernels in the same order as the
+    eager ones, so they equal them bit for bit.
+
+    A replay copies the inputs into the graph's own and overwrites its
+    outputs, which every plan the previous replay of that key returned
+    holds: nothing of a plan may outlive the next step unless copied (the
+    pipeline's outputs stack the plans' counters into a fresh tensor).
+    Each graph has a memory pool of its own, since the graphs need not
+    replay in the order they were captured in: the fixed-frame mode's
+    recovery step first meets its keys after the other steps' graphs were
+    captured, and replays its new graphs before theirs. In a shared pool a
+    graph captured earlier could write its temporaries over a later
+    graph's outputs. Counters: ``plan.captures``,
+    ``plan.replays`` (:mod:`insmos_tpu_torch.obs`)."""
+
+    def __init__(self):
+        self._graphs = {}  # (key, occurrence) -> (graph, inputs, plans)
+        self._seen = collections.Counter()  # key -> builds this step
+        self._stream = None
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    @contextlib.contextmanager
+    def step(self):
+        """The body is one pipeline step: plan builders replay from these
+        graphs, and each key's occurrence counts from 0."""
+        global _CURRENT_GRAPHS
+        prev, _CURRENT_GRAPHS = _CURRENT_GRAPHS, self
+        self._seen.clear()
+        try:
+            yield
+        finally:
+            _CURRENT_GRAPHS = prev
+
+    def replay(self, x_keys, requests) -> list:
+        """``_make_span_plans(x_keys, requests)`` from its graph."""
+        inputs = _plan_inputs(x_keys, requests)
+        key = (tuple(tuple(sorted((k, v) for k, v in r.items()
+                                  if k not in _PLAN_TENSORS))
+                     for r in requests),
+               tuple((tuple(t.shape), t.dtype, t.device) for t in inputs))
+        n = self._seen[key]
+        self._seen[key] += 1
+        entry = self._graphs.get((key, n))
+        if entry is None:
+            entry = self._graphs[(key, n)] = self._capture(inputs, requests)
+        else:
+            for dst, src in zip(entry[1], inputs):
+                dst.copy_(src)
+        entry[0].replay()
+        obs.count("plan.replays")
+        return list(entry[2])
+
+    def _capture(self, inputs, requests):
+        dev = inputs[0].device
+        static = [t.clone() for t in inputs]
+        reqs = [dict(r, out_coords=static[1 + 2 * i],
+                     out_valid=static[2 + 2 * i])
+                for i, r in enumerate(requests)]
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        side, main = self._stream, torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            _make_span_plans(static[0], reqs)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            plans = _make_span_plans(static[0], reqs)
+        obs.count("plan.captures")
+        return graph, static, plans
 
 
 # --------------------------------------------------------------------- op

@@ -53,6 +53,22 @@ def _plan_name(stream: str, vector, n_overflow: int) -> str:
     return hits[0]
 
 
+def _copy(v):
+    """A captured argument that later steps leave as it is: tensors,
+    lists of them and plans are cloned (on the card a plan lives in its
+    CUDA graph's outputs, which the next step's replay overwrites)."""
+    if isinstance(v, list):
+        return [a.clone() for a in v]
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, SC.SpanPlan):
+        return dataclasses.replace(v, **{
+            f.name: getattr(v, f.name).clone()
+            for f in dataclasses.fields(v)
+            if isinstance(getattr(v, f.name), torch.Tensor)})
+    return v
+
+
 def capture(cfg, stream: str, n_steps: int, params, state, device):
     """Streams ``stream`` (seed 0) for ``n_steps`` through the port's
     pipeline on ``device`` at ``cfg`` with the given weight trees. Returns
@@ -74,10 +90,7 @@ def capture(cfg, stream: str, n_steps: int, params, state, device):
     def keep(*args):
         out = orig(*args)
         if int(args[6].n_overflow):
-            calls.append(tuple(
-                [a.clone() for a in v] if isinstance(v, list) else
-                v.clone() if isinstance(v, torch.Tensor) else v
-                for v in args))
+            calls.append(tuple(_copy(v) for v in args))
         return out
 
     caps = {}
