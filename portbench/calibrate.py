@@ -9,9 +9,10 @@
 For each seed, in one process, one run of the cell as ``run.py`` makes it
 (:func:`portbench.run.run`), with a window of ``--seconds``: the check's
 numbers on the steps it compares are the lower readings. With
-``--control``, the same steps through the plain reference with its matmul
-operands in float8 (e4m3), the precision below the configuration's
-bfloat16, held against the float32 reference (the upper readings). Prints
+``--control``, the same steps through the configuration's family's plain
+reference in the family's ``CONTROL_DTYPE`` (InsMOS: matmul operands in
+float8 e4m3, the precision below the configuration's bfloat16), held
+against the float32 reference (the upper readings). Prints
 one JSON line per seed; ``--out`` also writes them all. Needs a CUDA
 device.
 """
@@ -29,18 +30,17 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from portbench.run import (ROOT as BENCH_ROOT, cell_files,  # noqa: E402
-                           load_json, load_mix, pin_cores, run)
-
-CONTROL_DTYPE = "float8_e4m3fn"
+                           family_name, load_family, load_json, load_mix,
+                           pin_cores, run)
 
 
 def readings(cfg_doc, mix, seed, seconds, control, device="cuda",
              child_cpu=None):
     """One run's readings: the program's numbers and, with ``control``,
     the control's, beside the run's counts."""
+    dtype = load_family(family_name(cfg_doc)).CONTROL_DTYPE
     result, _ = run(cfg_doc, mix, seed, seconds, False, [], device,
-                    child_cpu=child_cpu,
-                    control=CONTROL_DTYPE if control else None)
+                    child_cpu=child_cpu, control=dtype if control else None)
     out = dict(seed=seed, correct=result["correct"],
                attempted=result["attempted"], failed=result["failed"],
                inexact=result["inexact"],

@@ -100,7 +100,8 @@ def compare(pairs, score_thresh: float) -> dict:
                 boxes_compared=n_box, box_pairs=len(score))
 
 
-def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:
-    """(every number within its limit, {name: {value, limit}})."""
-    out = {n: {"value": numbers[n], "limit": limits[n]} for n in NAMES}
-    return all(numbers[n] <= limits[n] for n in NAMES), out
+def verdict(numbers: dict, limits: dict, names) -> tuple[bool, dict]:
+    """(every number of ``names`` within its limit, {name: {value,
+    limit}})."""
+    out = {n: {"value": numbers[n], "limit": limits[n]} for n in names}
+    return all(numbers[n] <= limits[n] for n in names), out

@@ -7,10 +7,13 @@ The cell (``workloads`` in BENCHMARK.json at the checkout's root) names a
 configuration (``portbench/configs/<config>.json``) and a traffic mix
 (``portbench/mixes/<mix>.json``, with ``portbench/mixes/<mix>.py`` where
 the mix brings its own streams or loop: ``make_stream``, ``window``); its
-per-layer metrics are readers in ``portbench/metrics/<metric>.py``.
-Set-up builds the model from the benchmark's weights, starts the scan
-generator in a child process on a core of its own and steps through
-``warm_steps`` steps, which fills the window and builds the kernels. The
+per-layer metrics are readers in ``portbench/metrics/<metric>.py``. The
+configuration names its model family (``"family"``, ``insmos`` where
+absent): ``portbench/families/<family>.py`` gives everything that depends
+on the architecture (:func:`load_family`). Set-up builds the family's
+model on the benchmark's weights, starts the scan generator in a child
+process on a core of its own and steps through ``warm_steps`` steps,
+which fills the window and builds the kernels. The
 window then steps for ``--seconds``, by default in a closed loop
 (:func:`closed_loop`): each step pushes every stream's next scan and
 fetches every stream's outputs to the host before the next. It closes at
@@ -25,17 +28,17 @@ refused, since the generator and not the program set its pace. With
 end-to-end ones.
 
 After the window, a sample of its steps drawn from ``--seed`` is held
-against the plain reference (``portbench/reference``), each number beside
-its limit (``check`` in the configuration file): ``compare`` (step,
-stream) pairs, the streams taken in turn so that every stream has a step
-compared where ``compare`` >= the streams. A scan on which the program
-dropped points or sites, left a span-conv row uncovered or took a
-recovery step is served but inexact by the program's own gates: it is not
-compared, and is counted in the result's ``inexact`` and the per-layer
-``inexact_scan_pct``; in the fixed-frame mode so is every step whose
-window holds such a step, since the maintained sites and stem cache carry
-it. ``failed`` counts the window's scans whose outputs never reached the
-host.
+against the family's plain reference (``portbench/reference``), each of
+the family's numbers beside its limit (``check`` in the configuration
+file): ``compare`` (step, stream) pairs, the streams taken in turn so that
+every stream has a step compared where ``compare`` >= the streams. A scan
+on which the program's own gates fired (for InsMOS: points or sites
+dropped, a span-conv row left uncovered) or that took a recovery step is
+served but inexact: it is not compared, and is counted in the result's
+``inexact`` and the per-layer ``inexact_scan_pct``; in a mode that
+carries state (InsMOS's fixed frame) so is every step whose window holds
+such a step. ``failed`` counts the window's scans whose outputs never
+reached the host.
 
 The last line of standard output is the result (JSON); the last lines of
 standard error give each compared number and its limit. The exit code is
@@ -105,14 +108,52 @@ def load_mix(name: str, mixes_dir: str | None = None) -> dict:
     return mix
 
 
-def load_metric(name: str):
-    """The reader module of one per-layer metric."""
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}",
-                                                  path)
+def _load_module(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_metric(name: str):
+    """The reader module of one per-layer metric."""
+    return _load_module(os.path.join(HERE, "metrics", name + ".py"),
+                        f"portbench_metric_{name}")
+
+
+def family_name(cfg_doc: dict) -> str:
+    """The model family a configuration document names, ``insmos`` where
+    it names none."""
+    return cfg_doc.get("family", "insmos")
+
+
+def load_family(name: str, families_dir: str | None = None):
+    """The module of a model family (``families/<family>.py``). It gives:
+
+    - ``build(cd, device) -> (model, state)``: the program's model and the
+      benchmark's weights (``cd`` is the document's ``config``);
+    - ``Server(cd, model, mix, device)``: the program's pipeline for the
+      mix's ``entry`` and ``streams`` (``S``), with ``push(item) -> out``
+      (item: one (scan, tf) a stream), ``fetch(out, item)`` (every
+      stream's host outputs), ``gates(out)`` (the step's gate counters,
+      device tensors, one row a stream) and ``recoveries`` (the program's
+      recovery steps so far, each inexact on every stream);
+    - ``INEXACT``: the gates that make a scan inexact; ``CARRIED``: {gate:
+      its leading counters that a window carries into later steps};
+    - ``window(cd) -> (W, carries, (most points a scan, fixed frame,
+      voxel edge))``: the steps in the window, whether the mode carries
+      state, the scan producer's arguments;
+    - ``reference(cd, state, scans, tfs, *, device, dtype, tape)``: one
+      step of the plain reference; ``CONTROL_DTYPE``, the control's dtype;
+    - ``NAMES`` and ``compare(pairs, cd)``: the compared numbers, and all
+      of them with ``boxes_compared`` over [(program, reference)] outputs;
+    - ``step_work(cd, state, scans, tfs, device)``: a stream's step of
+      useful work (:func:`portbench.work.step_work`);
+    - ``RANGES``: (model method, host range, idle-gap label), the ranges
+      a traced run wraps around the model."""
+    d = families_dir or os.path.join(HERE, "families")
+    return _load_module(os.path.join(d, name + ".py"),
+                        f"portbench_family_{name}")
 
 
 def forbidden_modules() -> list[str]:
@@ -121,92 +162,68 @@ def forbidden_modules() -> list[str]:
 
 # ---------------------------------------------------------------- the run
 class Steps:
-    """The program's pipeline for one mix, and what each step took and
-    gave: inputs by stream, the outputs fetched, the gate counters."""
+    """A family's server for one mix, and what each step took and gave:
+    inputs by stream, the outputs fetched, the gate counters."""
 
-    def __init__(self, cfg, model, mix, device):
-        from insmos_tpu_torch.pipeline import (InferencePipeline,
-                                               PodInferencePipeline)
-
-        self.S = mix["streams"]
-        self.pod = mix["entry"] == "PodInferencePipeline"
-        if mix["entry"] == "InferencePipeline":
-            if self.S != 1:
-                raise ValueError("InferencePipeline serves one stream")
-            self.pipe = InferencePipeline(cfg, model, device)
-        elif mix["entry"] == "PodInferencePipeline":
-            self.pipe = PodInferencePipeline(cfg, model, [device], self.S)
-        else:
-            raise ValueError(f"unknown entry {mix['entry']!r}")
+    def __init__(self, fam, server):
+        self.fam = fam
+        self.srv = server
+        self.S = server.S
         self.inputs = []  # per step: [(scan, tf)] a stream
         self.outputs = []  # per step: [host outputs] a stream
-        self.gates = []  # per step: the device overflow counters
-        self.recovery = []  # per step: full-stem recovery steps taken
+        self.gates = []  # per step: the device gate counters
+        self.recovery = []  # per step: recovery steps taken
         self.fetch_range = None
 
     def step(self, item):
-        from insmos_tpu_torch.pipeline import (InferencePipeline,
-                                               PodInferencePipeline)
-
-        before = getattr(self.pipe, "n_full_steps", 0)
-        if not self.pod:
-            scan, tf = item[0]
-            out = self.pipe.push_scan(scan, tf)
-            with self._fetch():
-                host = [InferencePipeline.fetch(out, len(scan))]
-        else:
-            out = self.pipe.push_scans([s for s, _ in item],
-                                       [t for _, t in item])
-            with self._fetch():
-                host = [PodInferencePipeline.fetch(out, i, len(item[i][0]))
-                        for i in range(self.S)]
+        before = self.srv.recoveries
+        out = self.srv.push(item)
+        with self._fetch():
+            host = self.srv.fetch(out, item)
         self.inputs.append(item)
         self.outputs.append(host)
-        self.gates.append(out["overflow"])
-        self.recovery.append(getattr(self.pipe, "n_full_steps", 0) - before)
+        self.gates.append(self.srv.gates(out))
+        self.recovery.append(self.srv.recoveries - before)
 
     def _fetch(self):
         if self.fetch_range is None:
             return contextlib.nullcontext()
         return self.fetch_range("pb.fetch")
 
+    def _rows(self, v):
+        import torch
+
+        v = v.detach().to("cpu", torch.int64)
+        return v.reshape(self.S, -1) if self.S > 1 else v.reshape(1, -1)
+
     def bad_steps(self, carried_only: bool = False) -> list[list[bool]]:
-        """Per step and stream: the program dropped points or sites, left
-        a span-conv row uncovered, or took a recovery step. With
-        ``carried_only``, only what the fixed-frame mode carries into
-        later steps: the new scan's stem plan (the first span plan) and
-        its slab and the maintained window sites (the first two drop
-        counters)."""
+        """Per step and stream: one of the family's ``INEXACT`` gates
+        fired, or the step was a recovery step. With ``carried_only``,
+        only what a carrying mode passes on to later steps: the leading
+        counters of each gate that the family's ``CARRIED`` names."""
         import torch
 
         out = []
         for g, rec in zip(self.gates, self.recovery):
             per = torch.zeros(self.S, dtype=torch.int64)
-            for k in ("span_overflow", "motion_dropped", "unet_dropped",
-                      "voxelizer_capacity_dropped"):
+            for k in self.fam.INEXACT:
                 if k not in g:
                     continue
-                v = g[k].detach().to("cpu", torch.int64)
-                v = v.reshape(self.S, -1) if self.S > 1 else v.reshape(1, -1)
+                v = self._rows(g[k])
                 if carried_only:
-                    n = {"span_overflow": 1, "motion_dropped": 2}.get(k, 0)
-                    v = v[:, :n]
+                    v = v[:, :self.fam.CARRIED.get(k, 0)]
                 per += v.sum(dim=1)
             out.append([bool(x > 0) or rec > 0 for x in per.tolist()])
         return out
 
     def gate_counts(self, steps) -> dict:
-        """Scans of ``steps`` on which each gate fired."""
-        import torch
-
+        """Scans of ``steps`` on which each ``INEXACT`` gate fired."""
         counts = {}
         for s in steps:
             for k, v in self.gates[s].items():
-                if k == "voxelizer_out_of_range" or k == "voxelizer_dropped":
-                    continue
-                v = v.detach().to("cpu", torch.int64)
-                v = v.reshape(self.S, -1) if self.S > 1 else v.reshape(1, -1)
-                counts[k] = counts.get(k, 0) + int((v.sum(dim=1) > 0).sum())
+                if k in self.fam.INEXACT:
+                    n = int((self._rows(v).sum(dim=1) > 0).sum())
+                    counts[k] = counts.get(k, 0) + n
         return counts
 
 
@@ -285,27 +302,22 @@ def reference_window(steps: Steps, s: int, i: int, W: int):
 
 def run(cfg_doc: dict, mix: dict, seed: int, seconds: float, trace: bool,
         layer_metrics: list, device: str = "cuda", t_start: float = None,
-        child_cpu: int | None = None, control: str | None = None):
+        child_cpu: int | None = None, control: str | None = None,
+        families_dir: str | None = None):
     """One run of a cell; returns the result object and the check's lines.
     ``device`` "cpu" serves the tests (no device numbers then).
     ``child_cpu``: the core the scan generator runs on alone. ``control``:
     a dtype; the reference computed in it is also held against the
     float32 reference on the compared steps, and its numbers are returned
-    under ``control`` (the check's upper readings)."""
+    under ``control`` (the check's upper readings). ``families_dir``: where
+    the configuration's family is found (``portbench/families``)."""
     import torch
-
-    from insmos_tpu_torch.config import Config
-    from insmos_tpu_torch.nn.model import InsMOSModel
-
-    from portbench import weights
-    from portbench.reference import model as ref
 
     t_start = _T_START if t_start is None else t_start
     on_card = device != "cpu"
+    fam = load_family(family_name(cfg_doc), families_dir)
     cd = cfg_doc["config"]
-    cfg = Config.from_dict(cd)
-    W = cd["model"]["n_past_steps"]
-    fixed = bool(cd["runtime"]["incremental_stem"])
+    W, carries, producer_args = fam.window(cd)
     S = mix["streams"]
 
     def sync():
@@ -315,17 +327,13 @@ def run(cfg_doc: dict, mix: dict, seed: int, seconds: float, trace: bool,
     hooks = traffic.load_hooks(mix.get("hooks_file"))
     window_fn = getattr(hooks, "window", None) or closed_loop
     prod = traffic.Producer(traffic.stream_seeds(seed, mix), mix,
-                            cd["runtime"]["max_points_per_scan"], fixed,
-                            cd["data"]["voxel_size"][0], mix["max_steps"],
+                            *producer_args, mix["max_steps"],
                             mix["ahead"], cpu=child_cpu)
     try:
-        sd = weights.state_dict(cd, device)
-        model = InsMOSModel(cfg)
-        model.load_state_dict(sd)
-        model.eval()
-        steps = Steps(cfg, model, mix, device)
+        model, state = fam.build(cd, device)
+        steps = Steps(fam, fam.Server(cd, model, mix, device))
         if trace:
-            _wrap_ranges(model)
+            _wrap_ranges(model, fam.RANGES)
         for _ in range(mix["warm_steps"]):
             steps.step(prod.get())
         sync()
@@ -352,14 +360,14 @@ def run(cfg_doc: dict, mix: dict, seed: int, seconds: float, trace: bool,
             prof_first = len(steps.inputs)
             record = trace_mod.profile(
                 lambda: (steps.step(prod.get()), sync()),
-                mix["profile_steps"])
+                mix["profile_steps"], [r[1:] for r in fam.RANGES])
             prof_steps = list(range(prof_first, len(steps.inputs)))
             steps.fetch_range = None
     finally:
         prod.close()
 
     bad = failed_steps(steps.bad_steps(),
-                       steps.bad_steps(True) if fixed else None, W)
+                       steps.bad_steps(True) if carries else None, W)
     window = range(first, first + n_window)
     failed_by = steps.gate_counts(window)
     n_inexact = sum(sum(bad[s]) for s in window)
@@ -367,7 +375,7 @@ def run(cfg_doc: dict, mix: dict, seed: int, seconds: float, trace: bool,
     n_failed = attempted - len(lat)
     memory_peak = max(setup_peak, window_peak)
     pipe_outputs = steps.outputs
-    del steps.pipe, model
+    del steps.srv, model
     steps.gates = []
     gc.collect()
     if on_card:
@@ -380,20 +388,19 @@ def run(cfg_doc: dict, mix: dict, seed: int, seconds: float, trace: bool,
     pairs, ctrl = [], []
     for s, i in picked:
         scans, tfs = reference_window(steps, s, i, W)
-        r = ref.step(cd, sd, scans, tfs, fixed_frame=fixed, device=device)
+        r = fam.reference(cd, state, scans, tfs, device=device)
         pairs.append((pipe_outputs[s][i], r))
         if control:
-            ctrl.append((ref.step(cd, sd, scans, tfs, fixed_frame=fixed,
-                                  device=device, dtype=control), r))
-    thr = cd["model"]["post"]["score_thresh"]
-    numbers = check.compare(pairs, thr)
+            ctrl.append((fam.reference(cd, state, scans, tfs, device=device,
+                                       dtype=control), r))
+    numbers = fam.compare(pairs, cd)
     compare_s = time.perf_counter() - t_cmp
     limits = cfg_doc.get("check", {}).get("limits")
     if limits is None:
         correct, shown = False, {n: {"value": numbers[n], "limit": None}
-                                 for n in check.NAMES}
+                                 for n in fam.NAMES}
     else:
-        correct, shown = check.verdict(numbers, limits)
+        correct, shown = check.verdict(numbers, limits, fam.NAMES)
     correct = correct and n_cmp > 0
 
     device_info = {"platform": "gpu" if on_card else "cpu",
@@ -412,8 +419,7 @@ def run(cfg_doc: dict, mix: dict, seed: int, seconds: float, trace: bool,
         result["metrics"] = metrics
     else:
         t_work = time.perf_counter()
-        work = _profiled_work(ref, cd, sd, steps, prof_steps, W, fixed,
-                              device)
+        work = _profiled_work(fam, cd, state, steps, prof_steps, W, device)
         work["seconds"] = time.perf_counter() - t_work
         rec = dict(trace=record, streams=S, scans=len(prof_steps) * S,
                    window_step_s=window_s / n_window,
@@ -451,48 +457,38 @@ def run(cfg_doc: dict, mix: dict, seed: int, seconds: float, trace: bool,
                           "numbers": numbers, "seconds": compare_s,
                           "failed_by": failed_by, "window_s": window_s}
     if control:
-        result["control"] = check.compare(ctrl, thr)
+        result["control"] = fam.compare(ctrl, cd)
     result["check"] = {n: [v["value"], v["limit"]] for n, v in shown.items()}
     lines = [f"check {n}: {v['value']!r} limit {v['limit']!r}"
              for n, v in shown.items()]
     return result, lines
 
 
-def _wrap_ranges(model):
-    """``pb.motion`` / ``pb.tail`` host ranges around the model instance's
-    two halves, active only under the profiler."""
+def _wrap_ranges(model, ranges):
+    """Host ranges around methods of the model instance, active only under
+    the profiler: ``ranges`` holds (method, range name, gap label)."""
     from torch.autograd.profiler import record_function
 
-    fm, ft = model.forward_motion, model.forward_tail
+    def wrapped(fn, name):
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
 
-    def forward_motion(*a, **k):
-        with record_function("pb.motion"):
-            return fm(*a, **k)
-
-    def forward_tail(*a, **k):
-        with record_function("pb.tail"):
-            return ft(*a, **k)
-
-    model.forward_motion = forward_motion
-    model.forward_tail = forward_tail
+    for method, name, _ in ranges:
+        setattr(model, method, wrapped(getattr(model, method), name))
 
 
-def _profiled_work(ref, cd, sd, steps, prof_steps, W, fixed, device):
+def _profiled_work(fam, cd, state, steps, prof_steps, W, device):
     """Useful work of the profiled steps, by the benchmark's rulebook:
     FLOPs per step (all streams) and the span convs' bound."""
     from portbench import work as work_mod
 
-    act_bytes = 2 if cd["runtime"]["compute_dtype"] != "float32" else 4
     flops, span_bound, span_flops = 0.0, 0.0, 0.0
     for s in prof_steps:
         for i in range(steps.S):
             scans, tfs = reference_window(steps, s, i, W)
-            tape = ref.Tape()
-            r = ref.step(cd, sd, scans, tfs, fixed_frame=fixed, device=device,
-                         tape=tape)
-            w = work_mod.step_work(work_mod.cone(tape), r["dense_flops"],
-                                   act_bytes)
-            del tape
+            w = fam.step_work(cd, state, scans, tfs, device)
             flops += w["flops"]
             span_bound += w["span"]["bound_s"]
             span_flops += w["span"]["flops"]

@@ -100,7 +100,7 @@ def test_trace_reader_charges_ranges():
         dict(ph=X, cat="gpu_memcpy", name="Memcpy DtoH", ts=870, dur=30,
              args=dict(correlation=3)),
     ]
-    r = trace.read(ev)
+    r = trace.read(ev, [("pb.motion", "motion"), ("pb.tail", "tail")])
     assert r["steps"] == 1 and abs(r["window_s"] - 1e-3) < 1e-12
     assert abs(r["busy_s"] - 180e-6) < 1e-12  # 200-350 as one, and 30
     assert r["activities"] == 3

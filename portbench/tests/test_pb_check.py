@@ -39,7 +39,7 @@ def test_control_fails_at_small_size():
         c = ref.step(cd, sd, *args, fixed_frame=False, dtype="float8_e4m3fn")
         pairs.append((c, r))
     numbers = check.compare(pairs, cd["model"]["post"]["score_thresh"])
-    ok, _ = check.verdict(numbers, _limits())
+    ok, _ = check.verdict(numbers, _limits(), check.NAMES)
     assert not ok, numbers
 
 
@@ -110,9 +110,11 @@ def test_control_fails_at_cell_size():
     for seed in (101, 102, 103):
         row = readings(doc, m, seed, 8.0, True)
         assert row["compared"] > 0, row
-        ok, _ = check.verdict(row["control"], doc["check"]["limits"])
+        ok, _ = check.verdict(row["control"], doc["check"]["limits"],
+                              check.NAMES)
         assert not ok, row
-        ok, _ = check.verdict(row["program"], doc["check"]["limits"])
+        ok, _ = check.verdict(row["program"], doc["check"]["limits"],
+                              check.NAMES)
         assert ok, row
 
 
@@ -156,9 +158,11 @@ def test_pod8_half_the_slots_left_out_is_not_correct(seed):
         sound.append((got, r))
         broken.append((_left_out(len(r["point_logits"])) if i in gone
                        else got, r))
-    ok, shown = check.verdict(check.compare(sound, 0.1), _limits())
+    ok, shown = check.verdict(check.compare(sound, 0.1), _limits(),
+                              check.NAMES)
     assert ok, shown
-    ok, shown = check.verdict(check.compare(broken, 0.1), _limits())
+    ok, shown = check.verdict(check.compare(broken, 0.1), _limits(),
+                              check.NAMES)
     assert not ok, shown
 
 
@@ -183,5 +187,5 @@ def test_box_faults_fail_the_matched_pair_numbers(fault):
         pairs.append((got, r))
     numbers = check.compare(pairs, 0.1)
     assert numbers["box_miss_share"] == 0.0
-    ok, shown = check.verdict(numbers, _limits())
+    ok, shown = check.verdict(numbers, _limits(), check.NAMES)
     assert not ok, shown

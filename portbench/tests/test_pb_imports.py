@@ -1,8 +1,8 @@
-"""The harness, every configuration, mix and metric reader, and the
-reference load with jax and the JAX package blocked, and no loaded module
-has the top-level name jax, jaxlib, flax or insmos_tpu (compared whole:
-insmos_tpu_torch is the program and allowed). The reference alone loads
-nothing of the program either."""
+"""The harness, every configuration, mix, model family and metric reader,
+and the reference load with jax and the JAX package blocked, and no loaded
+module has the top-level name jax, jaxlib, flax or insmos_tpu (compared
+whole: insmos_tpu_torch is the program and allowed). The reference modules
+alone load nothing of the program either."""
 
 import os
 import subprocess
@@ -20,8 +20,12 @@ _ALL = _BLOCK + r"""
 import glob, importlib, json, os
 import portbench.run, portbench.calibrate, portbench.trace, portbench.work
 import portbench.reference.model
-from portbench.run import load_metric
+from portbench.run import load_family, load_metric
 bench = json.load(open("BENCHMARK.json"))
+families = glob.glob(os.path.join("portbench", "families", "*.py"))
+assert families
+for f in families:
+    load_family(os.path.splitext(os.path.basename(f))[0])
 for m in bench["per_layer"]:
     load_metric(m["name"])
 for c in bench["configs"]:
@@ -34,7 +38,14 @@ print(sorted(tops & {"jax", "jaxlib", "flax", "insmos_tpu"}))
 """
 
 _REF = _BLOCK + r"""
-import portbench.reference.model, portbench.weights, portbench.traffic
+import glob, importlib, os
+names = [os.path.basename(f)[:-3] for f in
+         glob.glob(os.path.join("portbench", "reference", "*.py"))]
+assert "model" in names
+for n in names:
+    if not n.startswith("_"):
+        importlib.import_module("portbench.reference." + n)
+import portbench.weights, portbench.traffic
 import portbench.check, portbench.stats, portbench.work
 tops = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 print(sorted(tops & {"jax", "jaxlib", "flax", "insmos_tpu", "insmos_tpu_torch"}))

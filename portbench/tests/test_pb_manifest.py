@@ -1,14 +1,15 @@
 """BENCHMARK.json against the files it names: every cell's configuration
-and mix is found by name, every name and unit keeps to the benchmark's
-characters, the latency tail lists the drive cell, and every
-per-layer metric's reader agrees with its entry and moves scans_per_s."""
+and mix is found by name, every configuration's model family (named or by
+default) is a file under portbench/families and its limits are the
+family's compared numbers, every name and unit keeps to the benchmark's
+characters, the latency tail lists the drive cell, and every per-layer
+metric's reader agrees with its entry and moves scans_per_s."""
 
 import json
 import os
 import re
 
-from portbench import check
-from portbench.run import load_metric
+from portbench.run import family_name, load_family, load_metric
 from portbench.tests.pb_common import ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -33,7 +34,19 @@ def test_cells_find_their_files():
         with open(os.path.join(ROOT, c["file"])) as fh:
             doc = json.load(fh)
         assert doc["reduced"] == c["reduced"] == []
-        assert set(doc["check"]["limits"]) == set(check.NAMES)
+        fam = load_family(family_name(doc))
+        assert set(doc["check"]["limits"]) == set(fam.NAMES)
+
+
+def test_every_configuration_file_names_a_family():
+    d = os.path.join(ROOT, "portbench", "configs")
+    files = sorted(f for f in os.listdir(d) if f.endswith(".json"))
+    assert files
+    for f in files:
+        with open(os.path.join(d, f)) as fh:
+            name = family_name(json.load(fh))
+        path = os.path.join(ROOT, "portbench", "families", name + ".py")
+        assert NAME.match(name) and os.path.isfile(path), (f, name)
 
 
 def test_names_and_units():

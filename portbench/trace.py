@@ -2,9 +2,11 @@
 ``torch.profiler``, read back from its Chrome trace.
 
 The benchmark marks its own host ranges with ``record_function``:
-``pb.step`` around a step, ``pb.motion`` and ``pb.tail`` around the model
-instance's ``forward_motion`` and ``forward_tail`` (wrappers set on the
-instance), ``pb.fetch`` around the outputs' copy to the host. A device
+``pb.step`` around a step, the model family's ranges around methods of
+the model instance (``RANGES`` in ``families/<family>.py``, wrappers set
+on the instance; InsMOS's ``pb.motion`` and ``pb.tail`` around
+``forward_motion`` and ``forward_tail``), ``pb.fetch`` around the outputs'
+copy to the host. A device
 activity (kernel, copy or memset) is charged to the range, or the
 program's custom op (``insmos::span_conv``, ``insmos::greedy_nms``), whose
 host interval holds the runtime call that launched it (matched by the
@@ -21,15 +23,11 @@ from collections import defaultdict
 
 from .stats import gaps, union_length
 
-RANGES = ("pb.step", "pb.motion", "pb.tail", "pb.fetch")
 OPS = ("insmos::span_conv", "insmos::greedy_nms")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# what the host was doing during an idle gap, innermost first
-GAP_LABELS = (("pb.motion", "motion"), ("pb.tail", "tail"),
-              ("pb.fetch", "fetch"), ("pb.step", "push"))
 
 
-def profile(step_fn, n_steps: int) -> dict:
+def profile(step_fn, n_steps: int, model_ranges) -> dict:
     """Runs ``step_fn`` (one step, ending with its outputs on the host)
     ``n_steps`` times under the profiler and returns :func:`read` of the
     trace. The trace goes to a temporary file, deleted once read."""
@@ -50,7 +48,7 @@ def profile(step_fn, n_steps: int) -> dict:
             events = json.load(fh)["traceEvents"]
     finally:
         os.remove(path)
-    return read(events)
+    return read(events, model_ranges)
 
 
 class _Intervals:
@@ -66,11 +64,17 @@ class _Intervals:
         return i >= 0 and self.spans[i][0] <= t <= self.spans[i][1]
 
 
-def read(events) -> dict:
+def read(events, model_ranges) -> dict:
     """The record a per-layer metric reads, from Chrome-trace events (times
     in microseconds): the traced window, device busy time (a union), the
     device activities charged to each range and op, the top device
-    operations and the longest idle gaps with what the host was doing."""
+    operations and the longest idle gaps with what the host was doing.
+    ``model_ranges``: the family's (range name, gap label) pairs, inside
+    ``pb.step`` and apart from ``pb.fetch``."""
+    model_ranges = [tuple(r) for r in model_ranges]
+    names = ("pb.step",) + tuple(n for n, _ in model_ranges) + ("pb.fetch",)
+    # what the host was doing during an idle gap, innermost first
+    gap_labels = model_ranges + [("pb.fetch", "fetch"), ("pb.step", "push")]
     ranges = defaultdict(list)
     launch = {}
     dev = []
@@ -86,7 +90,7 @@ def read(events) -> dict:
             c = ev.get("args", {}).get("correlation")
             if c is not None:
                 launch[c] = s
-        elif (name in RANGES and cat == "user_annotation") or (
+        elif (name in names and cat == "user_annotation") or (
                 name in OPS and cat in ("cpu_op", "user_annotation")):
             ranges[name].append((s, e))
     steps = sorted(ranges["pb.step"])
@@ -94,7 +98,7 @@ def read(events) -> dict:
         raise RuntimeError("the trace holds no pb.step range")
     w0, w1 = steps[0][0], steps[-1][1]
     dev = [d for d in dev if d[1] > w0 and d[0] < w1]
-    look = {n: _Intervals(ranges[n]) for n in RANGES + OPS}
+    look = {n: _Intervals(ranges[n]) for n in names + OPS}
     charged = defaultdict(float)
     by_name = defaultdict(float)
     for s, e, name, corr in dev:
@@ -102,7 +106,7 @@ def read(events) -> dict:
         t = launch.get(corr)
         if t is None:
             continue
-        for n in RANGES + OPS:
+        for n in names + OPS:
             if look[n].holds(t):
                 charged[n] += e - s
     busy = [(max(s, w0), min(e, w1)) for s, e, _, _ in dev]
@@ -110,7 +114,7 @@ def read(events) -> dict:
     for a, b in gaps(busy, w0, w1):
         mid = 0.5 * (a + b)
         label = "between steps"
-        for n, lab in GAP_LABELS:
+        for n, lab in gap_labels:
             if look[n].holds(mid):
                 label = lab
                 break
