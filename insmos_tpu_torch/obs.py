@@ -13,6 +13,10 @@ Counters (:func:`count`) are integer adds under a name, always on:
   graphs captured (sparse/span_conv.py, ``PlanGraphs``);
 - ``pipeline.steps``, ``pipeline.scans``: pipeline steps and the scans
   they took (pipeline.py);
+- ``cp.points``, ``cp.voxels``, ``cp.voxels_dropped``, ``cp.candidates``:
+  CenterPoint's merged points in range, voxels kept, voxels its capacity
+  dropped and boxes over the score gate before NMS, counted where
+  ``SweepPipeline.fetch`` brings a step's counts to the host;
 - ``host_syncs``: operations that blocked the host until the card's stream
   drained, counted only while tracing is on, inside a span, on the card
   (``torch.cuda.set_sync_debug_mode("warn")``; each warning is counted and

@@ -27,6 +27,10 @@ plans run eagerly.
 spread over the devices given (every visible card by default): on each
 device one step, ``torch.func.vmap``ped over that device's slots, as the
 JAX package's pod does.
+
+:class:`SweepPipeline` streams one sensor's sweeps into CenterPoint
+(``nn/centerpoint.py``): a ring of sweeps rolled as the InsMOS window is,
+merged each step into one cloud with a time-lag channel.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 from torch.utils import _pytree
 
 from . import obs, setup_device
+from .nn.centerpoint import ego_box
 from .nn.model import InsMOSModel
 from .sparse.span_conv import PlanGraphs
 from .sparse.tensor import KEY_SENTINEL
@@ -448,3 +453,88 @@ class PodInferencePipeline:
         with obs.span("fetch"):
             return _host_outputs(
                 {k: out[k][i] for k in OUT_KEYS if k != "overflow"}, n_raw)
+
+
+class SweepPipeline:
+    """One stream of sweeps through CenterPoint, contracted as
+    :class:`InferencePipeline` is: :meth:`push_scan` takes a sweep in its
+    own sensor frame and the step transform, and returns the step's device
+    outputs; :meth:`fetch` brings them to the host.
+
+    The ring holds ``sweeps.n_sweeps`` sweeps on the device, rolled and
+    re-expressed in the newest sweep's frame by
+    :meth:`InferencePipeline._roll_window`, with each point's ego-box flag
+    from its own frame beside it (``nn/centerpoint.merge_sweeps``). On the
+    card a step's span plans replay CUDA graphs (``PlanGraphs``)."""
+
+    def __init__(self, cfg, model, device="cuda"):
+        self.cfg = cfg
+        self.device = setup_device(device)
+        self.model = model.to(self.device).eval()
+        self._buf = None
+        self.plan_graphs = PlanGraphs()
+
+    def reset(self):
+        W = self.cfg.sweeps.n_sweeps
+        P = self.cfg.runtime.max_points_per_scan
+        dev = self.device
+        self._buf = {
+            "points": torch.zeros((W, P, 4), dtype=torch.float32, device=dev),
+            "num_points": torch.zeros((W,), dtype=torch.int32, device=dev),
+            "scan_mask": torch.zeros((W,), dtype=torch.bool, device=dev),
+            "near": torch.zeros((W, P), dtype=torch.bool, device=dev),
+        }
+
+    _pad = InferencePipeline._pad
+
+    def _step(self, padded, n_raw, tf) -> dict:
+        dev = self.device
+        buf = self._buf
+        with obs.span("push"):
+            new = torch.from_numpy(padded).to(dev, non_blocking=True)
+            pts, num, mask = InferencePipeline._roll_window(
+                buf, new, n_raw, torch.from_numpy(tf).to(dev,
+                                                         non_blocking=True))
+            near = torch.roll(buf["near"], -1, dims=0)
+            near[-1] = ego_box(self.cfg, new)
+            self._buf = {"points": pts, "num_points": num, "scan_mask": mask,
+                         "near": near}
+        inter = self.model.forward_backbone3d(self._buf)
+        return self.model.forward_post(self.model.forward_dense(inter))
+
+    @torch.inference_mode()
+    def push_scan(self, scan: np.ndarray, tf: np.ndarray | None = None) -> dict:
+        """Feed one sweep (N, 4+) in its own sensor frame; ``tf`` is
+        inv(pose_t) @ pose_{t-1} (identity when untracked). Returns the
+        step's outputs as device tensors (see :meth:`fetch`)."""
+        with obs.step(1):
+            obs.count("pipeline.steps")
+            obs.count("pipeline.scans")
+            with obs.span("push"):
+                if self._buf is None:
+                    self.reset()
+                padded, n_raw = self._pad(scan)
+                tf = np.eye(4, dtype=np.float32) if tf is None else \
+                    np.asarray(tf, np.float32)
+            with self.plan_graphs.step():
+                return self._step(padded, n_raw, tf)
+
+    @staticmethod
+    def fetch(out: dict, n_raw: int = 0) -> dict[str, np.ndarray]:
+        """Device outputs -> the kept boxes on the host (boxes (k, 9): x,
+        y, z, dx, dy, dz, yaw, vx, vy; scores; labels), and the step's
+        counts into the ``cp.*`` counters (``obs``): merged points in
+        range, voxels kept, voxels the capacity dropped, candidates over
+        the score gate before NMS. ``n_raw`` (the sweep's points) is
+        :meth:`InferencePipeline.fetch`'s; no output here is per point."""
+        with obs.span("fetch"):
+            with obs.span("sync.fetch"):
+                mask = out["box_mask"].cpu().numpy()
+                boxes, scores, labels, counts = (
+                    out[k].cpu().numpy()
+                    for k in ("boxes", "scores", "labels", "counts"))
+            for name, v in zip(("cp.points", "cp.voxels", "cp.voxels_dropped",
+                                "cp.candidates"), counts.tolist()):
+                obs.count(name, int(v))
+            return {"boxes": boxes[mask], "scores": scores[mask],
+                    "labels": labels[mask]}
